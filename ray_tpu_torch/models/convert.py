@@ -1,0 +1,42 @@
+"""Weights from the JAX package's params, one to one.
+
+The port keeps the reference's names and stacked ``[L]`` layout, so a
+nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+params)`` on the JAX side) maps leaf for leaf onto the port's params.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.models.gpt import GPTConfig, Params, param_shapes
+
+
+def params_from_jax(np_tree: Mapping[str, Any], cfg: GPTConfig,
+                    device: DeviceLike = None) -> Params:
+    """The port's f32 params from a nested dict of numpy arrays.  Raises on
+    a missing or extra name or a shape that does not match ``cfg``."""
+    dev = resolve_device(device)
+
+    def convert(tree, shapes, path):
+        if set(tree) != set(shapes):
+            raise KeyError(f"params at {path or '<root>'}: got "
+                           f"{sorted(tree)}, expected {sorted(shapes)}")
+        out = {}
+        for name, shape in shapes.items():
+            where = f"{path}.{name}" if path else name
+            if isinstance(shape, dict):
+                out[name] = convert(tree[name], shape, where)
+                continue
+            arr = np.asarray(tree[name], dtype=np.float32)
+            if arr.shape != tuple(shape):
+                raise ValueError(f"{where}: shape {arr.shape}, expected "
+                                 f"{tuple(shape)}")
+            out[name] = torch.from_numpy(arr.copy()).to(dev)
+        return out
+
+    return convert(np_tree, param_shapes(cfg), "")

@@ -1,0 +1,65 @@
+"""Paged KV-cache bookkeeping: page allocator + per-sequence tables.
+
+The port's own copy of ``ray_tpu/serve/engine/kv_cache.py`` (vLLM's
+BlockAllocator/BlockTable analog).  The device half (the pools and the
+gather/scatter ops) lives in ``ray_tpu_torch.ops.paged_attention``; this
+module owns WHICH pages a sequence may touch.  Page 0 is reserved as the
+scratch sink the device ops route padded and inactive writes to, so the
+free list starts at page 1 and a table row is padded with zeros.
+
+Allocation is all-or-nothing at admission (the engine reserves the worst
+case ``ceil((prompt + max_new) / page)`` up front), so a sequence that fits
+at admission always finishes and the loop never preempts.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+
+class PageAllocator:
+    """Free-list allocator over pages ``1..num_pages-1`` (page 0 is the
+    scratch sink and is never handed out)."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.num_pages = num_pages
+        # LIFO free list: recently freed pages are reused first.
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        """Pop ``n`` pages or raise: callers gate on ``can_alloc``, so a
+        raise here is an accounting bug, not backpressure."""
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV cache exhausted: need {n} pages, {len(self._free)} free")
+        pages, self._free[-n:] = self._free[-n:], []
+        return pages
+
+    def free(self, pages: List[int]) -> None:
+        for p in pages:
+            if not 0 < p < self.num_pages:
+                raise ValueError(f"freeing invalid page id {p}")
+        if set(pages) & set(self._free):
+            raise ValueError("double free in KV page allocator")
+        self._free.extend(pages)
+
+
+def table_row(pages: List[int], maxp: int) -> np.ndarray:
+    """A sequence's fixed-width page-table row: its reserved pages padded
+    with 0 (the scratch page) out to ``maxp``."""
+    if len(pages) > maxp:
+        raise ValueError(f"{len(pages)} pages exceed table width {maxp}")
+    row = np.zeros((maxp,), np.int64)
+    row[: len(pages)] = pages
+    return row

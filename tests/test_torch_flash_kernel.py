@@ -1,0 +1,96 @@
+"""The Hopper flash-attention kernel against its plain PyTorch version.
+
+Every test here needs a CUDA card and skips without one.  The module
+imports nothing of JAX, so on the card (which has no JAX) it runs without
+the repo's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_flash_kernel.py
+"""
+
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.models import GPTConfig, gpt_forward, gpt_init
+
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Against the plain version run in f32 on the same inputs.  bf16: the
+# kernel rounds p to bf16 before P.V and o to bf16.  f32: sums in another
+# order (TF32 is off on both sides).
+ATOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}   # (o, lse)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on the card run `python -m pytest "
+                    "--noconftest -m gpu tests/test_torch_flash_kernel.py`")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(shape, device, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout, S", [("bnsh", 256), ("bsnh", 200)])
+def test_kernel_matches_plain(cuda, dtype, H, causal, layout, S):
+    shape = (2, 3, S, H) if layout == "bnsh" else (2, S, 3, H)
+    q, k, v = _inputs(shape, cuda, TORCH[dtype], seed=H)
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, layout=layout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert o.shape == shape and o.dtype == q.dtype and lse.shape == (6, S)
+    ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          causal, layout=layout)
+    atol_o, atol_lse = ATOL[dtype]
+    torch.testing.assert_close(o.float(), ro, atol=atol_o, rtol=atol_o)
+    torch.testing.assert_close(lse, rl, atol=atol_lse, rtol=0)
+
+
+@pytest.mark.gpu
+def test_kernel_reads_strided_qkv_views(cuda):
+    """qkv[:, i] of a [B, 3, N, S, H] view with a contiguous head dim, as
+    the GPT block hands it over, is read in place."""
+    B, N, S, H = 2, 4, 128, 64
+    x = torch.randn(B, S, 3, N, H, device=cuda, dtype=torch.bfloat16)
+    qkv = x.permute(0, 2, 3, 1, 4)
+    o = fa.flash_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], layout="bnsh")
+    ro, _ = fa.flash_attention_reference(
+        *(qkv[:, i].float() for i in range(3)), True, layout="bnsh")
+    torch.testing.assert_close(o.float(), ro, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 16, 2, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_gpt_forward_with_the_kernel_matches_dense(cuda):
+    cfg = GPTConfig(vocab_size=256, max_seq_len=256, num_layers=2,
+                    num_heads=4, embed_dim=128, dtype=torch.float32,
+                    attention="flash")
+    params = gpt_init(0, cfg, device=cuda)
+    tokens = torch.randint(0, 256, (2, 200), device=cuda)
+    before = fa.flash_attention.launches
+    flash = gpt_forward(params, tokens, cfg)
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    dense = gpt_forward(params, tokens,
+                        dataclasses.replace(cfg, attention="dense"))
+    torch.testing.assert_close(flash, dense, atol=2e-4, rtol=0)
