@@ -15,6 +15,9 @@ Every phase prints one JSON line and any failure exits nonzero:
            same seeded inputs: the main-path shape (bf16, causal,
            [4,12,1024,64] bnsh), non-causal, bsnh, f32, ragged tails and
            the other head dims
+  kernel_bwd  the backward kernels (dq; dk and dv) against the plain
+           backward run in f32 on the same seeded q, k, v, dO, over the
+           same cases: max |err| <= tol x max |ref| per tensor
   forward  GPT-2-small [4, 1024], attention="flash": f32 logits against
            the dense forward; bf16 top-1 against the f32 forward, as close
            as the dense bf16 forward's; exactly 12 kernel launches per
@@ -25,10 +28,21 @@ Every phase prints one JSON line and any failure exits nonzero:
            dense forward's greedy tokens; in bf16 throughput and time to
            first token, and a profile of one full decode step; every page
            returned
+  train    GPT-2-small training at full width: (a) f32 loss and grads
+           with flash against dense at [2, 1024]; (b) bf16 flash grads as
+           close to the f32 dense grads as the bf16 dense grads are
+           (cosine per leaf); (d) flash launches of one step under the
+           remat policies full, attn, attn_dots; (c) bench.py's
+           configuration (B=32, S=1024, bf16, remat "dots", ce_block 256,
+           AdamW 3e-4 b2 0.95 wd 1e-4): 2 warm and 10 timed steps on one
+           batch, loss finite and falling, exact launches per step, ms per
+           step, samples/s, tokens/s, MFU; (e) a profile of one step
   kernels  per kernel: its time, its plain version's, one library call's
-           (scaled_dot_product_attention, a yardstick the port never
-           calls), the least time the card could take, its launches on the
-           main path (the forward and serve phases) and its error
+           (scaled_dot_product_attention's forward, or its backward timed
+           as forward+backward less forward: a yardstick the port never
+           calls), the least time the card could take, its launches on
+           the main paths (forward and serve for the forward kernel, the
+           timed training steps for all three) and its error
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits nonzero before printing any result.
@@ -38,7 +52,9 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -65,6 +81,28 @@ KERNEL_CASES = [
 ]
 # Against the plain version in f32: (o atol = o rtol, lse atol).
 KERNEL_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+# Backward against the plain version in f32: max |err| <= tol x max |ref|
+# per tensor (bf16: P and dS are rounded before their products, and the
+# outputs to bf16; f32: sums in another order).
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# bench.py's model FLOPs per token of GPT-2-small at S=1024: 6N + 12 L S D
+# with N = 124,448,256 parameters.
+MFLOP_PER_TOKEN = (6 * 124_448_256 + 12 * 12 * 1024 * 768) / 1e6
+# Training checks: f32 flash loss within this relative distance of dense,
+# each grad leaf within GRAD_TOL x max |leaf|; bf16 flash grads' cosine
+# with the f32 dense grads at most COS_MARGIN below the bf16 dense grads'.
+LOSS_RTOL, GRAD_TOL, COS_MARGIN = 1e-5, 1e-3, 1e-2
+
+
+# Device time by kind of kernel in a profile, matched by name in order:
+# the port's kernels, cuBLAS GEMMs, reductions (softmax, norms, sums),
+# then element-wise and copy kernels.
+KERNEL_CLASSES = (
+    ("flash", ("flash_",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("reduce", ("reduce_kernel", "softmax", "norm")),
+    ("elementwise_copy", ("elementwise", "copy", "Functor", "index")),
+)
 
 
 def emit(phase: str, **fields):
@@ -88,6 +126,29 @@ def sync(dev):
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def launch_counts():
+    """(flash forward, dq, dkv) launches so far."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    return (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches)
+
+
+def reset_launch_counts():
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    flash_attention.launches = 0
+    flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
+
+
+def named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from named_leaves(v, name)
+        else:
+            yield name, v
 
 
 # ------------------------------------------------------------------ phases
@@ -120,6 +181,40 @@ def phase_kernel(dev, cases=KERNEL_CASES):
              causal=causal, dtype=dtype, o_max_abs_err=errs[name][0],
              lse_max_abs_err=err_lse, o_tol=tol_o, lse_tol=tol_lse, ok=ok)
         check(ok, f"flash kernel case {name!r} outside tolerance")
+    return errs
+
+
+def phase_kernel_bwd(dev, cases=KERNEL_CASES):
+    """Each case: dq, dk, dv from the backward kernels (o and lse from the
+    forward kernel) against the plain backward run in f32 on the same
+    inputs.  Returns {name: {"dq": err, "dk": err, "dv": err}}."""
+    import torch
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd)
+    errs = {}
+    for i, (name, shape, layout, causal, dtype) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=getattr(torch, dtype))
+                       for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, causal, layout=layout)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal, layout=layout)
+        sync(dev)
+        want = flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            causal, layout=layout)
+        tol, fields, ok = BWD_TOL[dtype], {}, True
+        errs[name] = {}
+        for t, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, ref = float((a.float() - b).abs().max()), float(
+                b.abs().max())
+            errs[name][t] = err
+            fields[f"{t}_max_abs_err"], fields[f"{t}_max_abs_ref"] = err, ref
+            ok = ok and err <= tol * ref and bool(torch.isfinite(a).all())
+        emit("kernel_bwd", case=name, shape=list(shape), layout=layout,
+             causal=causal, dtype=dtype, tol_rel=tol, ok=ok, **fields)
+        check(ok, f"flash backward case {name!r} outside tolerance")
     return errs
 
 
@@ -222,10 +317,18 @@ def profile_window(phase, fn, dev, iters=3, top=8):
         kernels.append((e.self_device_time_total / 1e3 / iters, e.key))
     kernels.sort(reverse=True)
     busy = sum(ms for ms, _ in kernels)
-    flash = sum(ms for ms, k in kernels if "flash_fwd" in k)
+    flash = {name: sum(ms for ms, k in kernels if name in k)
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    by_class = {}
+    for ms, k in kernels:
+        cls = next((c for c, words in KERNEL_CLASSES
+                    if any(w in k for w in words)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
     emit(phase, wall_ms_per_call=wall, device_busy_ms_per_call=busy,
-         device_idle_share=1 - busy / wall, flash_ms_per_call=flash,
-         flash_share_of_busy=flash / busy,
+         device_idle_share=1 - busy / wall,
+         flash_ms_per_call=sum(flash.values()),
+         flash_share_of_busy=sum(flash.values()) / busy,
+         flash_kernels_ms_per_call=flash, device_ms_by_class=by_class,
          top_kernels=[{"name": k[:80], "ms_per_call": ms}
                       for ms, k in kernels[:top]])
 
@@ -335,6 +438,131 @@ def profile_decode_step(dev, cfg, params, prompts, page, max_prompt,
         params, cfg, token, pos, kp, vp, tables), dev)
 
 
+def _loss_and_grads(params, tokens, cfg):
+    """Loss and grads of one ``gpt_loss`` backward (no optimizer step);
+    the params' .grad are cleared again."""
+    from ray_tpu_torch.models import gpt_loss
+    leaves = [p for _, p in named_leaves(params)]
+    for p in leaves:
+        p.grad = None
+    loss = gpt_loss(params, {"tokens": tokens}, cfg)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _cosine(a, b):
+    import torch
+    a, b = a.flatten().double(), b.flatten().double()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10, ce_block=256):
+    """GPT-2-small training at full width; see the module docstring.  On
+    the CPU (a rehearsal at a tiny config) no kernel launches."""
+    import torch
+    from ray_tpu_torch.models import make_train_state, make_train_step
+    params, opt = make_train_state(SEED, cfg, learning_rate=3e-4,
+                                   weight_decay=1e-4, device=dev)
+    names = [n for n, _ in named_leaves(params)]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    check_tokens = torch.randint(0, cfg.vocab_size, (check_B, S + 1),
+                                 generator=gen).to(dev)
+    main = dataclasses.replace(cfg, dtype=torch.bfloat16, attention="flash",
+                               remat=True, remat_policy="dots",
+                               ce_block=ce_block)
+    L = cfg.num_layers if dev.type == "cuda" else 0
+
+    # (a) f32: flash against dense, loss and every grad leaf.
+    c32 = dataclasses.replace(main, dtype=torch.float32)
+    loss_f, g_flash = _loss_and_grads(params, check_tokens, c32)
+    loss_d, g_dense32 = _loss_and_grads(
+        params, check_tokens, dataclasses.replace(c32, attention="dense"))
+    ratios = [float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(g_flash, g_dense32)]
+    del g_flash
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    # (b) bf16: flash grads no further from f32 dense than dense bf16's.
+    _, g_fb = _loss_and_grads(params, check_tokens, main)
+    cos_flash = [_cosine(a, b) for a, b in zip(g_fb, g_dense32)]
+    del g_fb
+    _, g_db = _loss_and_grads(params, check_tokens,
+                              dataclasses.replace(main, attention="dense"))
+    cos_dense = [_cosine(a, b) for a, b in zip(g_db, g_dense32)]
+    del g_db, g_dense32
+    gaps = [d - f for f, d in zip(cos_flash, cos_dense)]
+    emit("train_check", batch=check_B, seq=S, f32_loss_flash=loss_f,
+         f32_loss_dense=loss_d, f32_loss_rel_diff=loss_rel,
+         loss_rtol=LOSS_RTOL, f32_grad_worst_leaf=names[worst],
+         f32_grad_worst_err_over_max=ratios[worst], grad_tol=GRAD_TOL,
+         bf16_min_cos_flash=min(cos_flash), bf16_min_cos_dense=min(cos_dense),
+         bf16_worst_cos_gap=max(gaps),
+         bf16_worst_cos_gap_leaf=names[max(range(len(gaps)),
+                                           key=gaps.__getitem__)],
+         cos_margin=COS_MARGIN)
+    check(loss_rel <= LOSS_RTOL, "f32 flash loss not within 1e-5 of dense")
+    check(max(ratios) <= GRAD_TOL,
+          f"f32 flash grad of {names[worst]} too far from dense")
+    check(max(gaps) <= COS_MARGIN,
+          "bf16 flash grads further from f32 than bf16 dense grads")
+
+    # (d) launches of one backward under the other remat policies
+    policies = {}
+    for policy, fwd in (("full", 2 * L), ("attn", L), ("attn_dots", L)):
+        n0 = launch_counts()
+        loss, _ = _loss_and_grads(params, check_tokens, dataclasses.replace(
+            main, remat_policy=policy))
+        sync(dev)
+        n = [b - a for a, b in zip(n0, launch_counts())]
+        policies[policy] = n
+        check(n == [fwd, L, L] and math.isfinite(loss),
+              f"remat {policy}: launches {n}, expected {[fwd, L, L]}")
+
+    # (c) bench.py's configuration: the training main path
+    step = make_train_step(main, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=gen).to(dev)
+    batch = {"tokens": tokens}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                     # the training path starts
+    metrics = [step(params, batch) for _ in range(warm)]
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics.append(step(params, batch))
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()                # ... and ends here
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    ms = secs / steps * 1e3
+    tok_s = B * S * steps / secs
+    per_step = [2 * L, L, L]
+    emit("train", batch=B, seq=S, dtype="bfloat16", remat_policy="dots",
+         ce_block=ce_block, warm_steps=warm, timed_steps=steps,
+         ms_per_step=ms, samples_per_s=B * steps / secs,
+         tokens_per_s=tok_s, mfu=tok_s * MFLOP_PER_TOKEN * 1e6 / 989e12,
+         mflop_per_token=MFLOP_PER_TOKEN, losses=losses, grad_norms=norms,
+         launches=dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                           launches)),
+         launches_per_step=per_step, other_policies_launches=policies,
+         peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                         if dev.type == "cuda" else None))
+    check(all(math.isfinite(x) for x in losses + norms),
+          "training loss or grad norm not finite")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    check(list(launches) == [n * (warm + steps) for n in per_step],
+          f"training launches {launches}, expected {per_step} per step")
+    if dev.type == "cuda":
+        profile_window("train_profile", lambda: step(params, batch), dev,
+                       iters=2)
+    return {"launches": launches, "per_step": per_step, "ms": ms}
+
+
 def time_ms(fn, iters):
     """Warm, then CUDA events around ``iters`` calls: ms per call."""
     import torch
@@ -350,14 +578,43 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(B, N, S, H, dtype, causal):
-    """Least time for the forward: each of q, k, v, o moved once plus lse,
-    over the memory rate; the products these inputs need (causal: key j
-    <= row i only) over the tensor-core rate of the dtype."""
+# (tensors of [B, N, S, H], f32 [B*N, S] statistics, products) each
+# function must move or do: fwd q k v o, lse, q.k^T and p.v; dq q k v dO
+# dQ, lse and D, q.k^T, dO.v^T and dS.k; dkv q k v dO dK dV, lse and D,
+# q.k^T, dO.v^T, P^T.dO and dS^T.q.
+FLASH_WORK = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}
+
+
+def device_ms(fn, kernel, iters):
+    """Warm, then the device time per call of the kernels whose name holds
+    ``kernel``, from torch.profiler (CUPTI) over ``iters`` calls: the
+    kernel's own time even where the host cannot enqueue calls as fast as
+    the card runs them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key)
+    check(us > 0, f"the profiler saw no {kernel} kernel")
+    return us / 1e3 / iters
+
+
+def flash_bound_ms(B, N, S, H, dtype, causal, kind="fwd"):
+    """Least time for one flash function: each input and output moved
+    once, over the memory rate; the products these inputs need (causal:
+    key j <= row i only) over the tensor-core rate of the dtype."""
+    tensors, stats, products = FLASH_WORK[kind]
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * B * N * S * H * elem + B * N * S * 4
+    nbytes = tensors * B * N * S * H * elem + stats * B * N * S * 4
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 2 * 2 * H * pairs * B * N           # q.k^T and p.v
+    flops = products * 2 * H * pairs * B * N
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -365,7 +622,9 @@ def flash_bound_ms(B, N, S, H, dtype, causal):
 
 def phase_kernel_times(dev, B, N, S, H):
     """The main-path call (bf16, causal, strided bnsh views of one fused
-    qkv projection) timed three ways."""
+    qkv projection) timed three ways.  ``ms`` is the kernel's device time;
+    ``event_ms`` the wrapper's time per call between CUDA events, which
+    the host's dispatch bounds when it is slower than the kernel."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops.flash_attention import (flash_attention_fwd,
@@ -374,15 +633,68 @@ def phase_kernel_times(dev, B, N, S, H):
     qkv = torch.randn((B, S, 3, N, H), generator=gen, device=dev,
                       dtype=torch.bfloat16).permute(0, 2, 3, 1, 4)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-    kernel = time_ms(lambda: flash_attention_fwd(q, k, v, True,
-                                                 layout="bnsh"), 50)
+    def call():
+        return flash_attention_fwd(q, k, v, True, layout="bnsh")
+
+    kernel = device_ms(call, "flash_fwd_kernel", 50)
+    event = time_ms(call, 50)
     plain = time_ms(lambda: flash_attention_reference(q, k, v, True,
                                                       layout="bnsh"), 5)
     library = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 50)
     bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True)
-    return {"ms": kernel, "plain_ms": plain, "library_ms": library,
-            "bound_ms": bound, "bound_by": bound_by}
+    return {"ms": kernel, "event_ms": event, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_kernel_bwd_times(dev, B, N, S, H):
+    """The training call of each backward kernel (bf16, causal, q/k/v
+    strided bnsh views of one fused qkv projection, dO contiguous, as
+    autograd hands it over) timed three ways.  The library yardstick is
+    scaled_dot_product_attention's backward (dq, dk and dv together),
+    timed as forward+backward less forward on the same views."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qkv = torch.randn((B, S, 3, N, H), generator=gen, device=dev,
+                      dtype=torch.bfloat16).permute(0, 2, 3, 1, 4)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    do = torch.randn((B, N, S, H), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, layout="bnsh")
+    delta = fa._delta(o, do, "bnsh")
+    scale = 1.0 / math.sqrt(H)
+    args = (q, k, v, do, lse, delta, True, scale, "bnsh")
+    ref_args = (q, k, v, o, lse, do, True)
+    out = {}
+    for kind, launch, plain in (
+            ("dq", fa._launch_dq, fa.flash_attention_dq_reference),
+            ("dkv", fa._launch_dkv, fa.flash_attention_dkv_reference)):
+        out[kind] = {
+            "ms": device_ms(lambda: launch(*args), f"flash_bwd_{kind}_", 20),
+            "event_ms": time_ms(lambda: launch(*args), 20),
+            "plain_ms": time_ms(lambda: plain(*ref_args, layout="bnsh"), 3)}
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        for x in (ql, kl, vl):
+            x.grad = None
+        F.scaled_dot_product_attention(ql, kl, vl,
+                                       is_causal=True).backward(do)
+
+    fwd_bwd = time_ms(sdpa_fwd_bwd, 20)
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True), 20)
+    for kind in ("dq", "dkv"):
+        bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True, kind)
+        out[kind].update(library_ms=fwd_bwd - fwd, bound_ms=bound,
+                         bound_by=bound_by)
+    emit("kernel_bwd_times", shape=[B, N, S, H], dtype="bfloat16",
+         causal=True, library="scaled_dot_product_attention backward "
+         "(dq+dk+dv) = fwd+bwd - fwd", library_fwd_bwd_ms=fwd_bwd,
+         library_fwd_ms=fwd, **out)
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -396,7 +708,6 @@ def main() -> int:
         return 2
     from ray_tpu_torch.models import GPTConfig, gpt_init
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -414,30 +725,60 @@ def main() -> int:
          sources=list(built.values()))
 
     errs = phase_kernel(dev)
+    bwd_errs = phase_kernel_bwd(dev)
 
     cfg = GPTConfig.gpt2_small()
     params = gpt_init(SEED, cfg, device=dev)
-    flash_attention.launches = 0              # the main path starts here
+    reset_launch_counts()                     # the inference path starts
     fwd = phase_forward(dev, cfg, params, B=4, S=1024)
     phase_serve(dev, cfg, params, n_req=12, prompt_lo=32, max_prompt=512,
                 max_new=64, page=16, max_batch=8, n_checked=3, n_greedy=16)
-    main_launches = flash_attention.launches  # ... and ends here
-    check(main_launches > 0, "the main path never launched the flash kernel")
+    infer_launches = launch_counts()          # ... and ends here
+    check(infer_launches[0] > 0 and infer_launches[1:] == (0, 0),
+          f"inference path launches {infer_launches}")
     del params
     torch.cuda.empty_cache()
 
+    train = phase_train(dev, cfg, B=32, S=1024)
+    torch.cuda.empty_cache()
+    check(all(train["launches"]), "the training path missed a kernel")
+
     times = phase_kernel_times(dev, B=4, N=12, S=1024, H=64)
-    main_o, main_lse = errs[KERNEL_CASES[0][0]]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:91",
-        "launches": main_launches,
-        "launches_per_forward": fwd["launches_per_forward"],
-        "max_abs_err": main_o, "lse_max_abs_err": main_lse,
-        "kernel_ms": times["ms"], **times,
-        "shape": [4, 12, 1024, 64], "dtype": "bfloat16", "causal": True,
-        "card": smi}]}), flush=True)
+    bwd_times = phase_kernel_bwd_times(dev, B=32, N=12, S=1024, H=64)
+    main_case = KERNEL_CASES[0][0]
+    main_o, main_lse = errs[main_case]
+    train_shape = [32, 12, 1024, 64]
+    common = {"route": "cuda", "dtype": "bfloat16", "causal": True,
+              "card": smi}
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:91",
+         "launches": infer_launches[0] + train["launches"][0],
+         "launches_inference": infer_launches[0],
+         "launches_train": train["launches"][0],
+         "launches_per_forward": fwd["launches_per_forward"],
+         "launches_per_train_step": train["per_step"][0],
+         "max_abs_err": main_o, "lse_max_abs_err": main_lse,
+         **times, "shape": [4, 12, 1024, 64],
+         **common},
+        {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:217",
+         "launches": train["launches"][1],
+         "launches_per_train_step": train["per_step"][1],
+         "max_abs_err": bwd_errs[main_case]["dq"],
+         "max_abs_err_shape": list(KERNEL_CASES[0][1]),
+         **bwd_times["dq"], "library_covers": "dq+dk+dv",
+         "shape": train_shape, **common},
+        {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:263",
+         "launches": train["launches"][2],
+         "launches_per_train_step": train["per_step"][2],
+         "max_abs_err": max(bwd_errs[main_case]["dk"],
+                            bwd_errs[main_case]["dv"]),
+         "max_abs_err_shape": list(KERNEL_CASES[0][1]),
+         **bwd_times["dkv"], "library_covers": "dq+dk+dv",
+         "shape": train_shape, **common},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

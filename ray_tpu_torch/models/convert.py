@@ -1,8 +1,9 @@
-"""Weights from the JAX package's params, one to one.
+"""Weights to and from the JAX package's params, one to one.
 
 The port keeps the reference's names and stacked ``[L]`` layout, so a
 nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)`` on the JAX side) maps leaf for leaf onto the port's params.
+params)`` on the JAX side) maps leaf for leaf onto the port's params, and
+``params_to_numpy`` gives the same tree back.
 """
 
 from __future__ import annotations
@@ -40,3 +41,10 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: GPTConfig,
         return out
 
     return convert(np_tree, param_shapes(cfg), "")
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The port's params as a nested dict of f32 numpy arrays (host
+    copies), the tree ``params_from_jax`` takes."""
+    return {k: params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().float().cpu().numpy() for k, v in params.items()}

@@ -1,4 +1,4 @@
-"""GPT-2-class decoder-only transformer, inference side, in PyTorch.
+"""GPT-2-class decoder-only transformer in PyTorch: training and inference.
 
 Port of ``ray_tpu/models/gpt.py``: plain functions on tensors over a params
 dict that keeps the reference's names and stacked ``[L]`` layout
@@ -8,23 +8,32 @@ are f32; compute runs in ``cfg.dtype`` with each param cast before its add
 or product and layer-norm statistics in f32, as in the reference.
 
 Attention is head-major (``bnsh``): the qkv projection writes ``[B, 3, N,
-S, H]`` and the flash kernel reads ``qkv[:, 0..2]`` through strides.  The
-layer loop is a Python loop over the stacked params under
-``torch.inference_mode``; training (remat, blocked cross-entropy, the
-optimizer step) is not ported yet.
+S, H]`` and the flash kernels read ``qkv[:, 0..2]`` through strides.  The
+layer loop is a Python loop over the stacked params (unbound once, so the
+backward stacks each leaf's layer grads in one op).  The trunk is
+differentiable: ``gpt_loss`` (full or blocked cross-entropy head),
+per-block rematerialization (``cfg.remat``, four policies) and
+``make_train_step`` (AdamW) are the training path; ``gpt_prefill`` and
+``gpt_decode_step`` run under ``torch.inference_mode`` for serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+import os
+import warnings
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ray_tpu_torch import DeviceLike, resolve_device
-from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ray_tpu_torch.ops.paged_attention import (append_kv, paged_attention,
                                                prefill_kv)
 
@@ -40,12 +49,17 @@ class GPTConfig:
     embed_dim: int = 768
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16   # compute dtype (params stay f32)
-    # Kept for parity with the reference config; inference does not use them.
+    # Per-block rematerialization when training.  "full" recomputes the
+    # whole block in the backward; "dots" saves the projection matmuls'
+    # outputs; "attn" saves only the attention output (the flash forward
+    # is not re-run); "attn_dots" saves both.
     remat: bool = True
-    remat_policy: str = "full"
+    remat_policy: str = "full"   # "full" | "dots" | "attn" | "attn_dots"
     # "auto" picks flash at S >= 1024 (S % 128 == 0) on a CUDA device and
     # dense otherwise; "dense" and "flash" pin the implementation.
     attention: str = "auto"
+    # Sequence-block size of the blocked cross-entropy head (0 = the full
+    # [B, S, V] logits).
     ce_block: int = 0
     # MoE fields of the reference; num_experts > 0 is not ported yet.
     num_experts: int = 0
@@ -146,12 +160,27 @@ def gpt_init(seed_or_generator: Union[int, torch.Generator], cfg: GPTConfig,
     }
 
 
-def _layer(params: Params, l: int) -> Params:
-    """Layer ``l``'s slice of the stacked ``[L, ...]`` params (views)."""
-    def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[l]
+def _leaves(tree) -> Iterator[torch.Tensor]:
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _layers(params: Params, num_layers: int) -> List[Params]:
+    """Each layer's slice of the stacked ``[L, ...]`` params (views from one
+    ``unbind`` per leaf, whose backward is one ``stack``)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
                 for k, v in tree.items()}
-    return take(params["layers"])
+
+    def take(tree, l):
+        return {k: take(v, l) if isinstance(v, dict) else v[l]
+                for k, v in tree.items()}
+
+    stacked = split(params["layers"])
+    return [take(stacked, l) for l in range(num_layers)]
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -213,13 +242,44 @@ def _qkv_bnsh(cfg: GPTConfig, p: Params, x):
 
 
 def _block(cfg: GPTConfig, attn_fn, x, p: Params):
-    """One transformer block (the reference's head-major branch)."""
+    """One transformer block (the reference's head-major branch).  Every
+    projection is a 2-d matmul (``aten.mm``), which the ``dots`` remat
+    policy saves."""
     dt = cfg.dtype
     qkv = _qkv_bnsh(cfg, p, x)
-    o = attn_fn(qkv[:, 0], qkv[:, 1], qkv[:, 2])
-    o = torch.einsum("bnsh,nhd->bsd", o, p["attn"]["wo"].to(dt))
+    o = attn_fn(qkv[:, 0], qkv[:, 1], qkv[:, 2])           # [B, N, S, H]
+    B, N, S, H = o.shape
+    o = torch.matmul(o.transpose(1, 2).reshape(B, S, N * H),
+                     p["attn"]["wo"].to(dt).reshape(N * H, -1))
     x = x + o + p["attn"]["bo"].to(dt)
     return _mlp(cfg, p, x)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVED_BY_POLICY = {"dots": _DOTS, "attn": (FLASH_FWD_OP,),
+                    "attn_dots": _DOTS + (FLASH_FWD_OP,)}
+
+
+def _remat_context_fn(policy: str) -> Callable:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    (the reference's ``jax.checkpoint`` policies).  ``dots`` saves the
+    outputs of matmuls without batch dims, as
+    ``dots_with_no_batch_dims_saveable`` does; ``attn`` saves the flash
+    forward's outputs (the reference saves the attention output by name).
+    On the dense path, whose attention is not one op, ``attn`` saves
+    nothing and ``attn_dots`` equals ``dots``: the grads are the same,
+    only the recompute differs."""
+    if policy == "full":
+        return noop_context_fn
+    if policy not in _SAVED_BY_POLICY:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    saved = frozenset(_SAVED_BY_POLICY[policy])
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def _embed(params: Params, cfg: GPTConfig, tokens, pos):
@@ -232,30 +292,39 @@ def _embed(params: Params, cfg: GPTConfig, tokens, pos):
 def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden [B, S, D] after ln_f in the compute
-    dtype, moe aux loss 0.0)."""
+    dtype, moe aux loss 0.0).  Differentiable; when autograd records (grad
+    enabled and a param requires grad) and ``cfg.remat``, each block runs
+    under non-reentrant ``torch.utils.checkpoint`` with the policy's
+    selective-checkpoint context."""
     B, S = tokens.shape
     if S > cfg.max_seq_len:
         raise ValueError(f"sequence {S} exceeds max_seq_len "
                          f"{cfg.max_seq_len}")
     attn_fn = _attention_fn(cfg, S, tokens.device)
-    with torch.inference_mode():
-        pos = torch.arange(S, device=tokens.device)
-        x = _embed(params, cfg, tokens, pos[None])
-        for l in range(cfg.num_layers):
-            x = _block(cfg, attn_fn, x, _layer(params, l))
-        x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    block = functools.partial(_block, cfg, attn_fn)
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(params))
+    if cfg.remat and recording:
+        context_fn = _remat_context_fn(cfg.remat_policy)
+        block = functools.partial(checkpoint, block, use_reentrant=False,
+                                  context_fn=context_fn)
+    pos = torch.arange(S, device=tokens.device)
+    x = _embed(params, cfg, tokens, pos[None])
+    for p in _layers(params, cfg.num_layers):
+        x = block(x, p)
+    x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     return x, torch.zeros((), device=tokens.device)
 
 
 def gpt_forward_with_aux(params: Params, tokens: torch.Tensor,
-                         cfg: GPTConfig
+                         cfg: GPTConfig, keep_dtype: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V] f32, moe aux loss 0.0).  The
-    logits are computed in the compute dtype, then upcast."""
+    """tokens [B, S] -> (logits [B, S, V], moe aux loss 0.0).  The logits
+    are computed in the compute dtype and upcast to f32 unless
+    ``keep_dtype`` (the loss upcasts inside its reductions)."""
     x, aux = gpt_hidden(params, tokens, cfg)
-    with torch.inference_mode():
-        logits = torch.matmul(x, params["wte"].to(cfg.dtype).t()).float()
-    return logits, aux
+    logits = torch.matmul(x, params["wte"].to(cfg.dtype).t())
+    return (logits if keep_dtype else logits.float()), aux
 
 
 def gpt_forward(params: Params, tokens: torch.Tensor,
@@ -272,6 +341,106 @@ def token_loglikes(logits: torch.Tensor, targets: torch.Tensor
     lse = torch.log(torch.exp(z).sum(dim=-1)) + m[..., 0].float()
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return tgt.float() - lse
+
+
+# ------------------------------------------------------------------ loss
+
+
+def _chunk_loglike_sum(xc, head, tc):
+    return token_loglikes(torch.matmul(xc, head.t()), tc).sum()
+
+
+def blocked_ce_loglike_sum(x: torch.Tensor, head: torch.Tensor,
+                           targets: torch.Tensor, block: int
+                           ) -> torch.Tensor:
+    """Sum of next-token loglikes with the head matmul and the CE fused per
+    sequence chunk of ``block`` tokens, each chunk under non-reentrant
+    ``torch.utils.checkpoint``: neither pass holds a [B, S, V] tensor, only
+    one [B, block, V] chunk (the backward recomputes each chunk's logits).
+    ``head`` is [V, D], the tied GPT embedding (the reference's ``"vd"``
+    layout).  A block that does not split S into several chunks falls
+    back to the full logits with a ``RuntimeWarning``, or raises
+    ``ValueError`` under ``RT_STRICT_CE_BLOCK=1``."""
+    B, S, D = x.shape
+    if S % block or S == block:
+        msg = (f"ce_block={block} does not evenly split sequence length "
+               f"S={S} into multiple chunks; falling back to full "
+               f"[B={B}, S={S}, V] logits — the blocked head's memory "
+               f"win is LOST. Pick ce_block so that S % ce_block == 0 "
+               f"and ce_block < S.")
+        if os.environ.get("RT_STRICT_CE_BLOCK") == "1":
+            raise ValueError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return _chunk_loglike_sum(x, head, targets)
+    total = torch.zeros((), device=x.device)
+    for xc, tc in zip(x.split(block, dim=1), targets.split(block, dim=1)):
+        total = total + checkpoint(_chunk_loglike_sum, xc, head, tc,
+                                   use_reentrant=False)
+    return total
+
+
+def gpt_loss(params: Params, batch: Dict[str, torch.Tensor],
+             cfg: GPTConfig) -> torch.Tensor:
+    """Next-token cross-entropy, f32 scalar.  ``batch``: {"tokens": [B,
+    S+1]}.  With ``cfg.ce_block`` the head and CE run blocked
+    (``blocked_ce_loglike_sum``); otherwise over the full logits, kept in
+    the compute dtype and upcast only inside ``token_loglikes``."""
+    toks = batch["tokens"]
+    inputs, targets = toks[:, :-1], toks[:, 1:]
+    if cfg.ce_block:
+        x, _ = gpt_hidden(params, inputs, cfg)
+        ll = blocked_ce_loglike_sum(x, params["wte"].to(cfg.dtype), targets,
+                                    cfg.ce_block)
+        return -ll / targets.numel()
+    logits, _ = gpt_forward_with_aux(params, inputs, cfg, keep_dtype=True)
+    return -token_loglikes(logits, targets).mean()
+
+
+# ------------------------------------------------------------ train step
+
+
+def make_train_state(seed_or_generator: Union[int, torch.Generator],
+                     cfg: GPTConfig, learning_rate: float = 3e-4,
+                     weight_decay: float = 0.1, device: DeviceLike = None
+                     ) -> Tuple[Params, torch.optim.AdamW]:
+    """(params from ``gpt_init``, ``make_optimizer`` over them).
+    ``weight_decay`` is passed to torch explicitly: its default (1e-2) is
+    neither this function's (0.1) nor ``optax.adamw``'s (1e-4)."""
+    params = gpt_init(seed_or_generator, cfg, device)
+    return params, make_optimizer(params, learning_rate, weight_decay)
+
+
+def make_optimizer(params: Params, learning_rate: float = 3e-4,
+                   weight_decay: float = 0.1) -> torch.optim.AdamW:
+    """AdamW over every leaf of ``params`` (each set to require grad), as
+    ``optax.adamw(learning_rate, b1=0.9, b2=0.95, eps=1e-8,
+    weight_decay=weight_decay)``: optax's ``p - lr * (m/(sqrt(v)+eps) +
+    wd * p)`` and torch's ``p * (1 - lr * wd) - lr * m/(sqrt(v)+eps)`` are
+    the same update."""
+    leaves = [p.requires_grad_(True) for p in _leaves(params)]
+    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.95),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer
+                    ) -> Callable[[Params, Dict[str, torch.Tensor]],
+                                  Dict[str, torch.Tensor]]:
+    """``step(params, batch) -> {"loss", "grad_norm"}``: one AdamW step of
+    ``gpt_loss``, updating ``params`` (the tensors ``optimizer`` holds) in
+    place.  ``grad_norm`` is the global L2 norm of the gradients, not
+    clipped (``optax.global_norm``).  The metrics stay on the device."""
+    def step(params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad(set_to_none=True)
+        tokens = batch["tokens"].to(params["wte"].device)
+        loss = gpt_loss(params, {"tokens": tokens}, cfg)
+        loss.backward()
+        grad_norm = torch.nn.utils.get_total_norm(
+            [p.grad for p in _leaves(params)])
+        optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
 
 
 # --------------------------------------------------------- paged decode
@@ -317,8 +486,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     with torch.inference_mode():
         x = _embed(params, cfg, tokens,
                    torch.arange(S, device=tokens.device)[None])
-        for l in range(cfg.num_layers):
-            p = _layer(params, l)
+        for l, p in enumerate(_layers(params, cfg.num_layers)):
             qkv = _qkv_bnsh(cfg, p, x)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [B, N, S, H]
             prefill_kv(k_pages[l], v_pages[l], k[0], v[0], length,
@@ -347,8 +515,7 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, token: torch.Tensor,
     dt = cfg.dtype
     with torch.inference_mode():
         x = _embed(params, cfg, token, pos)
-        for l in range(cfg.num_layers):
-            p = _layer(params, l)
+        for l, p in enumerate(_layers(params, cfg.num_layers)):
             h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
             qkv = torch.einsum("bd,dcnh->bcnh", h, p["attn"]["wqkv"].to(dt))
             q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # [B, N, H]

@@ -1,12 +1,17 @@
 """ray_tpu_torch.ops: the port's kernels and attention primitives.
 
-``flash_attention`` launches the hand-written Hopper kernel on CUDA tensors
-and its plain PyTorch version on CPU tensors; the paged-attention ops are
-plain PyTorch gathers and scatters, as the reference's are plain jnp.
+``flash_attention`` (differentiable) launches the hand-written Hopper
+kernels on CUDA tensors and their plain PyTorch versions on CPU tensors;
+the paged-attention ops are plain PyTorch gathers and scatters, as the
+reference's are plain jnp.
 """
 
 from ray_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_dkv_reference,
+    flash_attention_dq_reference,
     flash_attention_fwd,
     flash_attention_reference,
 )

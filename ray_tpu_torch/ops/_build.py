@@ -54,7 +54,7 @@ def _lib_path(source: str) -> str:
 
 def _ptxas_lines(log: str) -> List[str]:
     return [ln.strip() for ln in log.splitlines()
-            if re.search(r"registers|spill", ln)]
+            if re.search(r"entry function|registers|spill", ln)]
 
 
 def _compile(source: str, out: str) -> dict:
@@ -77,7 +77,8 @@ def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Compile every given source (default: all of ``csrc/*.cu``) that has
     no library yet, one nvcc process per source, all started together.
     Returns, per source, the nvcc seconds (0.0 when a built library was
-    reused) and the ptxas register and spill lines of the build."""
+    reused) and the ptxas lines of the build that name each kernel and
+    give its registers and spills."""
     if sources is None:
         sources = sorted(s for s in os.listdir(CSRC_DIR) if s.endswith(".cu"))
     todo = [s for s in sources if not os.path.exists(_lib_path(s))]

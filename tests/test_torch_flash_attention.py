@@ -93,11 +93,18 @@ def test_cpu_tensors_run_the_plain_version():
         o.numpy(), fa.flash_attention_reference(q, k, v, True)[0].numpy())
 
 
-def test_inputs_that_require_grad_raise():
-    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 16, 1, 16)))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention(q, k, v)
+def test_inputs_that_require_grad_get_grads():
+    """CPU tensors that require grad differentiate through the plain
+    backward; no kernel is launched."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _inputs((1, 16, 1, 16)))
+    before = (fa.flash_attention.launches, fa.flash_attention.dq_launches,
+              fa.flash_attention.dkv_launches)
+    fa.flash_attention(q, k, v).square().sum().backward()
+    assert all(x.grad is not None and torch.isfinite(x.grad).all()
+               and x.grad.abs().sum() > 0 for x in (q, k, v))
+    assert (fa.flash_attention.launches, fa.flash_attention.dq_launches,
+            fa.flash_attention.dkv_launches) == before
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -23,7 +23,8 @@ FORBIDDEN = {"jax", "jaxlib", "ray_tpu"}
 def _port_files():
     # The kernel tests run on the card, which has no JAX, so they too.
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_flash_kernel.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_flash_kernel.py",
+        ROOT / "tests" / "test_torch_flash_bwd_kernel.py"]
     assert len(files) > 10
     return files
 
