@@ -20,7 +20,6 @@ from ray_tpu_torch.models.gpt import (  # noqa: F401
     gpt_loss,
     gpt_prefill,
     init_paged_cache,
-    make_optimizer,
     make_train_state,
     make_train_step,
     token_loglikes,

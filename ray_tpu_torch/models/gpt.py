@@ -268,7 +268,7 @@ def _remat_context_fn(policy: str) -> Callable:
     forward's outputs (the reference saves the attention output by name).
     On the dense path, whose attention is not one op, ``attn`` saves
     nothing and ``attn_dots`` equals ``dots``: the grads are the same,
-    only the recompute differs."""
+    only the recompute differs, and ``gpt_hidden`` warns."""
     if policy == "full":
         return noop_context_fn
     if policy not in _SAVED_BY_POLICY:
@@ -305,6 +305,14 @@ def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig
     recording = torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(params))
     if cfg.remat and recording:
+        if (cfg.remat_policy in ("attn", "attn_dots")
+                and attn_fn is _dense_causal_attention_bnsh):
+            warnings.warn(
+                f"remat_policy={cfg.remat_policy!r} saves the flash "
+                f"attention op's output; dense attention is several ops "
+                f"and its output is recomputed, as under "
+                f"{'full' if cfg.remat_policy == 'attn' else 'dots'!r}",
+                UserWarning, stacklevel=2)
         context_fn = _remat_context_fn(cfg.remat_policy)
         block = functools.partial(checkpoint, block, use_reentrant=False,
                                   context_fn=context_fn)
@@ -403,23 +411,18 @@ def make_train_state(seed_or_generator: Union[int, torch.Generator],
                      cfg: GPTConfig, learning_rate: float = 3e-4,
                      weight_decay: float = 0.1, device: DeviceLike = None
                      ) -> Tuple[Params, torch.optim.AdamW]:
-    """(params from ``gpt_init``, ``make_optimizer`` over them).
-    ``weight_decay`` is passed to torch explicitly: its default (1e-2) is
-    neither this function's (0.1) nor ``optax.adamw``'s (1e-4)."""
-    params = gpt_init(seed_or_generator, cfg, device)
-    return params, make_optimizer(params, learning_rate, weight_decay)
-
-
-def make_optimizer(params: Params, learning_rate: float = 3e-4,
-                   weight_decay: float = 0.1) -> torch.optim.AdamW:
-    """AdamW over every leaf of ``params`` (each set to require grad), as
-    ``optax.adamw(learning_rate, b1=0.9, b2=0.95, eps=1e-8,
+    """(params from ``gpt_init``, each set to require grad; AdamW over
+    them), as ``optax.adamw(learning_rate, b1=0.9, b2=0.95, eps=1e-8,
     weight_decay=weight_decay)``: optax's ``p - lr * (m/(sqrt(v)+eps) +
     wd * p)`` and torch's ``p * (1 - lr * wd) - lr * m/(sqrt(v)+eps)`` are
-    the same update."""
+    the same update.  ``weight_decay`` is passed to torch explicitly: its
+    default (1e-2) is neither this function's (0.1) nor ``optax.adamw``'s
+    (1e-4)."""
+    params = gpt_init(seed_or_generator, cfg, device)
     leaves = [p.requires_grad_(True) for p in _leaves(params)]
-    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.95),
-                             eps=1e-8, weight_decay=weight_decay)
+    return params, torch.optim.AdamW(leaves, lr=learning_rate,
+                                     betas=(0.9, 0.95), eps=1e-8,
+                                     weight_decay=weight_decay)
 
 
 def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer

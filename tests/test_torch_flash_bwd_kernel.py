@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import GPTConfig, gpt_init, gpt_loss, make_optimizer
+from ray_tpu_torch.models import GPTConfig, gpt_init, gpt_loss
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
@@ -96,7 +96,8 @@ def test_gpt_grads_with_the_kernels_match_dense(cuda):
                     num_heads=4, embed_dim=128, dtype=torch.float32,
                     attention="flash", remat_policy="dots", ce_block=64)
     params = gpt_init(0, cfg, device=cuda)
-    make_optimizer(params)
+    for p in _leaves(params):
+        p.requires_grad_(True)
     tokens = torch.randint(0, 256, (2, 257), device=cuda)
 
     def grads(c):
