@@ -40,12 +40,29 @@ Every phase prints one JSON line and any failure exits nonzero:
            AdamW 3e-4 b2 0.95 wd 1e-4): 2 warm and 10 timed steps on one
            batch, loss finite and falling, exact launches per step, ms per
            step, samples/s, tokens/s, MFU; (e) a profile of one step
+  kernel_splash  the three splash kernels (forward; dq; dk and dv) against
+           their plain versions run in f32: Llama 2 7B's attention
+           [2,32,4096,128] bf16 causal at 128-blocks, [1,2,256,*] with
+           partial, empty and full blocks (bf16, f32, H 64 and 128), one
+           map per head with unequal blocks, and [2,4,1024,128] at every
+           candidate block size of the sweep
+  autotune the autotune path under a fresh cache file ($RT_AUTOTUNE_CACHE
+           set to a temporary file): tune_attention at (a) GPT-2-small's
+           training attention [B=32,S=1024,N=12,H=64] (flash and dense
+           timed, splash absent) and (b) [2,4096,32,128] (all 9 splash
+           candidates, flash and dense); every record read back by a fresh
+           cache; dispatch.attention with no variant runs each recorded
+           winner, as the launch counters show; the model's
+           attention="auto" takes the record; then the bf16 grads of the
+           splash variant at (b) no further from the f32 dense grads than
+           REL_MULT x the bf16 dense grads' distance
   kernels  per kernel: its time, its plain version's, one library call's
            (scaled_dot_product_attention's forward, or its backward timed
            as forward+backward less forward: a yardstick the port never
            calls), the least time the card could take, its launches on
            the main paths (forward and serve for the forward kernel, the
-           timed training steps for all three) and its error
+           timed training steps for the flash kernels, the autotune path
+           for the splash kernels) and its error
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits nonzero before printing any result.
@@ -57,9 +74,12 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -145,18 +165,26 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def launch_counts():
-    """(flash forward, dq, dkv) launches so far."""
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "splash_fwd",
+                "splash_bwd_dq", "splash_bwd_dkv")
+
+
+def _counted():
     from ray_tpu_torch.ops.flash_attention import flash_attention
-    return (flash_attention.launches, flash_attention.dq_launches,
-            flash_attention.dkv_launches)
+    from ray_tpu_torch.ops.splash_attention import splash_attention
+    return (flash_attention, splash_attention)
+
+
+def launch_counts():
+    """Launches so far of each kernel, in KERNEL_NAMES order: flash
+    forward, dq, dkv, then splash forward, dq, dkv."""
+    return tuple(getattr(fn, name) for fn in _counted()
+                 for name in ("launches", "dq_launches", "dkv_launches"))
 
 
 def reset_launch_counts():
-    from ray_tpu_torch.ops.flash_attention import flash_attention
-    flash_attention.launches = 0
-    flash_attention.dq_launches = 0
-    flash_attention.dkv_launches = 0
+    for fn in _counted():
+        fn.launches = fn.dq_launches = fn.dkv_launches = 0
 
 
 def case_inputs(gen, dev, shape, dtype, views, n):
@@ -568,8 +596,9 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10, ce_block=256):
         sync(dev)
         n = [b - a for a, b in zip(n0, launch_counts())]
         policies[policy] = n
-        check(n == [fwd, L, L] and math.isfinite(loss),
-              f"remat {policy}: launches {n}, expected {[fwd, L, L]}")
+        want = [fwd, L, L, 0, 0, 0]
+        check(n == want and math.isfinite(loss),
+              f"remat {policy}: launches {n}, expected {want}")
 
     # (c) bench.py's configuration: the training main path
     step = make_train_step(main, opt)
@@ -591,14 +620,13 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10, ce_block=256):
     norms = [float(m["grad_norm"]) for m in metrics]
     ms = secs / steps * 1e3
     tok_s = B * S * steps / secs
-    per_step = [2 * L, L, L]
+    per_step = [2 * L, L, L, 0, 0, 0]
     emit("train", batch=B, seq=S, dtype="bfloat16", remat_policy="dots",
          ce_block=ce_block, warm_steps=warm, timed_steps=steps,
          ms_per_step=ms, samples_per_s=B * steps / secs,
          tokens_per_s=tok_s, mfu=tok_s * MFLOP_PER_TOKEN * 1e6 / 989e12,
          mflop_per_token=MFLOP_PER_TOKEN, losses=losses, grad_norms=norms,
-         launches=dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                           launches)),
+         launches=dict(zip(KERNEL_NAMES, launches)),
          launches_per_step=per_step, other_policies_launches=policies,
          peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                          if dev.type == "cuda" else None))
@@ -744,6 +772,283 @@ def phase_kernel_bwd_times(dev, B, N, S, H):
     return out
 
 
+# ------------------------------------------------------- splash and autotune
+
+# The autotune path's two full-width shapes ([B, N, S, H], bf16, causal):
+# (a) GPT-2-small's training attention (bench.py's configuration), where
+# splash does not apply (head dim 64); (b) Llama 2 7B's attention, 32 heads
+# of 128 over a 4096 context (Touvron et al. 2023, Table 1), batch 2 as the
+# repo's long-context bench takes it at S=4096: the shape that reaches
+# splash.
+GPT2_ATTN = (32, 12, 1024, 64)
+SPLASH_SHAPE = (2, 32, 4096, 128)
+# (name, [B, N, S, H], dtype, fwd blocks, bwd blocks, per-head offsets)
+SPLASH_CASES = [
+    ("llama2-7b attention", SPLASH_SHAPE, "bfloat16", (128, 128),
+     (128, 128), ()),
+    ("map [[1,0],[2,1]] bf16", (1, 2, 256, 128), "bfloat16", (128, 128),
+     (128, 128), ()),
+    ("map [[1,0],[2,1]] f32", (1, 2, 256, 128), "float32", (128, 128),
+     (128, 128), ()),
+    ("H64 bf16", (1, 2, 256, 64), "bfloat16", (128, 128), (128, 128), ()),
+    ("per-head offsets, unequal blocks f32", (2, 2, 512, 64), "float32",
+     (256, 128), (128, 256), (0, 128)),
+] + [(f"blocks fwd {f} bwd {b}", (2, 4, 1024, 128), "bfloat16", (f, f),
+      (b, b), ()) for f in (128, 256, 512) for b in (128, 256, 512)]
+SPLASH_MAIN = SPLASH_CASES[0]
+
+
+def splash_case_inputs(gen, dev, shape, dtype, n):
+    """``n`` seeded normal tensors (q, k, v, then dO), q pre-scaled by
+    1/sqrt(H) as the splash caller does."""
+    import torch
+    dt = getattr(torch, dtype)
+    xs = [torch.randn(shape, generator=gen, device=dev, dtype=dt)
+          for _ in range(n)]
+    xs[0] = (xs[0] * shape[-1] ** -0.5).to(dt)
+    return xs
+
+
+def phase_kernel_splash(dev, cases=SPLASH_CASES):
+    """Each case: the three splash kernels (forward; dq; dk and dv, from
+    the forward kernel's o and lse) against their plain versions run in f32
+    on the same inputs and block maps.  Returns {name: {"o", "lse", "dq",
+    "dk", "dv": max |err|}}."""
+    import torch
+    from ray_tpu_torch.ops import splash_attention as sp
+    errs = {}
+    for i, (name, shape, dtype, fwd, bwd, offsets) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 200 + i)
+        q, k, v, do = splash_case_inputs(gen, dev, shape, dtype, 4)
+        mask = sp.causal_mha_mask(shape[1], shape[2], offsets)
+        fi, bi = sp.process_mask(mask, fwd), sp.process_mask(mask, bwd)
+        o, lse = sp.splash_attention_fwd(q, k, v, fi)
+        got = sp.splash_attention_bwd(q, k, v, o, lse, do, bi)
+        sync(dev)
+        f32 = [x.float() for x in (q, k, v)]
+        ro, rl = sp.splash_attention_reference(*f32, fi)
+        want = (sp.splash_dq_reference(*f32, o.float(), lse, do.float(), bi),
+                *sp.splash_dkv_reference(*f32, o.float(), lse, do.float(),
+                                         bi))
+        tol_o, tol_lse = KERNEL_TOL[dtype]
+        err_o = (o.float() - ro).abs()
+        errs[name] = {"o": float(err_o.max()),
+                      "lse": float((lse - rl).abs().max())}
+        ok = bool((err_o <= tol_o + tol_o * ro.abs()).all()) and \
+            errs[name]["lse"] <= tol_lse and bool(torch.isfinite(o).all())
+        fields = {}
+        for t, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, ref = float((a.float() - b).abs().max()), float(
+                b.abs().max())
+            errs[name][t] = err
+            fields[f"{t}_max_abs_err"], fields[f"{t}_max_abs_ref"] = err, ref
+            ok = ok and err <= BWD_TOL[dtype] * ref and \
+                bool(torch.isfinite(a).all())
+        emit("kernel_splash", case=name, shape=list(shape), dtype=dtype,
+             fwd_blocks=list(fwd), bwd_blocks=list(bwd),
+             offsets=list(offsets), block_map=fi.block_mask.tolist()
+             if fi.block_mask.size <= 16 else None,
+             o_max_abs_err=errs[name]["o"], lse_max_abs_err=errs[name]["lse"],
+             o_tol=tol_o, lse_tol=tol_lse, bwd_tol_rel=BWD_TOL[dtype], ok=ok,
+             **fields)
+        check(ok, f"splash kernel case {name!r} outside tolerance")
+        del q, k, v, do, o, lse, got, f32, ro, rl, want
+    return errs
+
+
+def phase_autotune(dev, cfg, shapes=(GPT2_ATTN, SPLASH_SHAPE)):
+    """The autotune path at full width under a fresh cache: tune_attention
+    at shapes (a) and (b) (per-variant timings, winners), a fresh
+    AutotuneCache over the file reads every record back, then
+    dispatch.attention(q, k, v) with no variant runs each recorded winner,
+    as the launch counters show, and the model's attention="auto" takes
+    the record at (a)."""
+    import torch
+    from ray_tpu_torch.autotune import (AutotuneCache, attention_key,
+                                        backend_fingerprint, cache_path)
+    from ray_tpu_torch.autotune import dispatch
+    from ray_tpu_torch.models.gpt import _auto_attention_variant
+    from ray_tpu_torch.ops.flash_attention import _dense_reference
+    backend = backend_fingerprint(dev)
+    on_card = dev.type == "cuda"
+    want_variants = {shape: {"flash", "dense"} | (
+        {"splash"} if shape[3] % 128 == 0 else set()) for shape in shapes}
+    ops = {"splash": "splash_attention", "flash": "flash_attention",
+           "dense": "dense_attention"}
+    out = {}
+    for B, N, S, H in want_variants:
+        t0 = time.perf_counter()
+        rec = dispatch.tune_attention(B, S, N, H, "bfloat16", True,
+                                      device=dev)
+        secs = time.perf_counter() - t0
+        timings = rec["meta"]["timings"]
+        key = attention_key(B, S, N, H, "bfloat16", True)
+        fresh = AutotuneCache(cache_path())       # the file, read anew
+        records = {v: fresh.lookup(ops[v], key, backend=backend,
+                                   count=False) for v in timings}
+        winner = fresh.lookup(dispatch.VARIANT_OP, key, backend=backend,
+                              count=False)
+        emit("autotune_sweep", shape=[B, N, S, H], dtype="bfloat16",
+             backend=backend, seconds=secs, winner=rec["config"]["variant"],
+             timings_ms=timings,
+             records={v: {"config": r["config"], "ms": r["ms"],
+                          "meta": r.get("meta")} for v, r in records.items()})
+        check(set(timings) == want_variants[(B, N, S, H)],
+              f"variants timed at {[B, N, S, H]}: {sorted(timings)}")
+        check(all(ms is not None and math.isfinite(ms)
+                  for ms in timings.values()), f"a variant did not run: "
+              f"{timings}")
+        check(winner is not None and winner["config"] == rec["config"] and
+              all(r is not None for r in records.values()),
+              "the records were not read back from the file")
+        if "splash" in timings:
+            check(records["splash"]["meta"]["swept"] == (9 if on_card
+                                                         else 1),
+                  "the splash sweep did not time all its candidates")
+        out[(B, N, S, H)] = rec["config"]["variant"]
+
+    dispatch.clear_memo()
+    for i, ((B, N, S, H), winner) in enumerate(out.items()):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 300 + i)
+        q, k, v = (torch.randn((B, S, N, H), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        n0 = launch_counts()
+        o = dispatch.attention(q, k, v)
+        sync(dev)
+        n = [b - a for a, b in zip(n0, launch_counts())]
+        ran = ("flash" if n == [1, 0, 0, 0, 0, 0] else
+               "splash" if n == [0, 0, 0, 1, 0, 0] else
+               "dense" if not any(n) else f"launches {n}")
+        ref = _dense_reference(q.float(), k.float(), v.float(), True, None)
+        tol = KERNEL_TOL["bfloat16"][0]
+        err = (o.float() - ref).abs()
+        emit("autotune_dispatch", shape=[B, N, S, H], winner=winner,
+             ran=ran, launches=dict(zip(KERNEL_NAMES, n)),
+             max_abs_err_vs_dense_f32=float(err.max()), tol=tol)
+        check(ran == winner or not on_card, f"dispatch at {[B, N, S, H]} "
+              f"ran {ran}, the record says {winner}")
+        check(bool((err <= tol + tol * ref.abs()).all()),
+              f"dispatched {winner} at {[B, N, S, H]} is off dense f32")
+        del q, k, v, o, ref, err
+    B, N, S, H = shapes[0]
+    model_auto = _auto_attention_variant(
+        B, S, dataclasses.replace(cfg, dtype=torch.bfloat16), dev)
+    emit("autotune_model_auto", shape=[B, N, S, H], variant=model_auto,
+         record=out[shapes[0]])
+    check(model_auto == out[shapes[0]],
+          "the model's attention='auto' did not take the record")
+    return out
+
+
+def phase_splash_grad_check(dev, shape=SPLASH_SHAPE):
+    """bf16 grads of attention(variant="splash") at shape (b): per tensor,
+    the relative distance ||g - g32|| / ||g32|| from the f32 dense grads at
+    most REL_MULT x the bf16 dense grads' (as train_check holds flash)."""
+    import torch
+    from ray_tpu_torch.autotune import dispatch
+    B, N, S, H = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    q, k, v, do = (torch.randn((B, N, S, H), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def grads(variant, dtype):
+        leaves = [x.to(dtype, copy=True).requires_grad_(True)
+                  for x in (q, k, v)]
+        o = dispatch.attention(*leaves, variant=variant, layout="bnsh")
+        o.backward(do.to(dtype))
+        out = [x.grad.float() for x in leaves]
+        del o, leaves
+        torch.cuda.empty_cache()
+        return out
+
+    g32 = grads("dense", torch.float32)
+    rel = {}
+    for variant in ("splash", "dense"):
+        rel[variant] = [_rel_dist(g, r) for g, r in zip(
+            grads(variant, torch.bfloat16), g32)]
+    ratios = [s / d for s, d in zip(rel["splash"], rel["dense"])]
+    emit("splash_grad_check", shape=[B, N, S, H], layout="bnsh",
+         bf16_rel_dist_splash=dict(zip(("dq", "dk", "dv"), rel["splash"])),
+         bf16_rel_dist_dense=dict(zip(("dq", "dk", "dv"), rel["dense"])),
+         ratios=dict(zip(("dq", "dk", "dv"), ratios)), rel_mult=REL_MULT)
+    check(max(ratios) <= REL_MULT, f"bf16 splash grads further from f32 "
+          f"than {REL_MULT} x the bf16 dense grads': {ratios}")
+
+
+def splash_bound_ms(kind, B, N, S, H, pairs):
+    """Least time for one splash function at bf16: each input and output
+    moved once, over the memory rate; the products over the pairs
+    (query, key) the mask leaves visible, over the tensor-core rate."""
+    tensors, stats, products = FLASH_WORK[kind]
+    nbytes = tensors * B * N * S * H * 2 + stats * B * N * S * 4
+    flops = products * 2 * H * pairs * B
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_splash_kernel_times(dev):
+    """Each splash kernel at shape (b) (bf16, the causal map at 128-blocks,
+    the default config) timed as the flash kernels are: device time from
+    the profiler, CUDA-event time of the wrapper, the plain version's
+    time; the library yardstick is scaled_dot_product_attention
+    (is_causal, scale 1: q is pre-scaled), forward for the forward kernel
+    and fwd+bwd less fwd for the pair."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import splash_attention as sp
+    B, N, S, H = SPLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = splash_case_inputs(gen, dev, SPLASH_SHAPE, "bfloat16", 4)
+    info = sp.process_mask(sp.causal_mha_mask(N, S), (128, 128))
+    offsets, rows, cols = info.tensors(dev)
+    blocks = (info.block_q, info.block_kv)
+    o, lse = sp._launch_fwd(q, k, v, offsets, rows, *blocks)
+    di = sp._di(o, do)
+    # the (query, key) pairs the mask leaves visible, over all heads
+    pairs = sum(int(m[0:S, 0:S].sum())
+                for m in sp.causal_mha_mask(N, S).masks)
+    calls = {
+        "fwd": (lambda: sp._launch_fwd(q, k, v, offsets, rows, *blocks),
+                "splash_fwd_kernel",
+                lambda: sp.splash_attention_reference(q, k, v, info)),
+        "dq": (lambda: sp._launch_dq(q, k, v, do, lse, di, offsets, rows,
+                                     *blocks), "splash_dq_kernel",
+               lambda: sp.splash_dq_reference(q, k, v, o, lse, do, info)),
+        "dkv": (lambda: sp._launch_dkv(q, k, v, do, lse, di, offsets, cols,
+                                       *blocks), "splash_dkv_kernel",
+                lambda: sp.splash_dkv_reference(q, k, v, o, lse, do, info)),
+    }
+    out = {}
+    for kind, (fn, kernel, plain) in calls.items():
+        bound, bound_by = splash_bound_ms(kind, B, N, S, H, pairs)
+        out[kind] = {"ms": device_ms(fn, kernel, 20),
+                     "event_ms": time_ms(fn, 20),
+                     "plain_ms": time_ms(plain, 2),
+                     "bound_ms": bound, "bound_by": bound_by}
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                              scale=1.0)
+
+    def sdpa_fwd_bwd():
+        for x in (ql, kl, vl):
+            x.grad = None
+        sdpa().backward(do)
+
+    fwd_bwd, fwd = time_ms(sdpa_fwd_bwd, 20), time_ms(sdpa, 20)
+    out["fwd"]["library_ms"] = fwd
+    for kind in ("dq", "dkv"):
+        out[kind]["library_ms"] = fwd_bwd - fwd
+    emit("splash_kernel_times", shape=list(SPLASH_SHAPE), dtype="bfloat16",
+         blocks=list(blocks), visible_pairs=pairs,
+         library="scaled_dot_product_attention (is_causal, scale 1); "
+         "backward = fwd+bwd - fwd (dq+dk+dv)", library_fwd_bwd_ms=fwd_bwd,
+         library_fwd_ms=fwd, **out)
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -753,6 +1058,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on the "
               "card", file=sys.stderr)
         return 2
+    # A fresh autotune cache, so no file under the card's home can steer
+    # the "auto" paths; removed at the end.
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["RT_AUTOTUNE_CACHE"] = os.path.join(cache_dir,
+                                                   "autotune.jsonl")
+    try:
+        return run()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run() -> int:
+    import torch
     from ray_tpu_torch.models import GPTConfig, gpt_init
     from ray_tpu_torch.ops import _build
 
@@ -773,6 +1091,7 @@ def main() -> int:
 
     errs = phase_kernel(dev)
     bwd_errs = phase_kernel_bwd(dev)
+    splash_errs = phase_kernel_splash(dev)
 
     cfg = GPTConfig.gpt2_small()
     params = gpt_init(SEED, cfg, device=dev)
@@ -781,27 +1100,46 @@ def main() -> int:
     phase_serve(dev, cfg, params, n_req=12, prompt_lo=32, max_prompt=512,
                 max_new=64, page=16, max_batch=8, n_checked=3, n_greedy=16)
     infer_launches = launch_counts()          # ... and ends here
-    check(infer_launches[0] > 0 and infer_launches[1:] == (0, 0),
+    check(infer_launches[0] > 0 and infer_launches[1:] == (0, 0, 0, 0, 0),
           f"inference path launches {infer_launches}")
     del params
     torch.cuda.empty_cache()
 
     train = phase_train(dev, cfg, B=32, S=1024)
     torch.cuda.empty_cache()
-    check(all(train["launches"]), "the training path missed a kernel")
+    check(all(train["launches"][:3]), "the training path missed a kernel")
+
+    reset_launch_counts()                     # the autotune path starts
+    phase_autotune(dev, cfg)
+    tune_launches = launch_counts()           # ... and ends here
+    emit("autotune_launches", launches=dict(zip(KERNEL_NAMES,
+                                                tune_launches)))
+    check(all(tune_launches[3:]), "the autotune path missed a splash kernel")
+    torch.cuda.empty_cache()
+    phase_splash_grad_check(dev)
+    torch.cuda.empty_cache()
 
     times = phase_kernel_times(dev, *MAIN_CASE[1])
     bwd_times = phase_kernel_bwd_times(dev, *TRAIN_CASE[1])
+    splash_times = phase_splash_kernel_times(dev)
     main_o, main_lse = errs[MAIN_CASE[0]]
     train_errs = bwd_errs[TRAIN_CASE[0]]
+    splash_main = splash_errs[SPLASH_MAIN[0]]
     common = {"route": "cuda", "dtype": "bfloat16", "causal": True,
               "card": smi}
+    splash_common = {"source": "ray_tpu_torch/csrc/splash_attention.cu",
+                     "reached_via": "ray_tpu/autotune/dispatch.py:238",
+                     "shape": list(SPLASH_SHAPE), "blocks": [128, 128],
+                     **common}
+    splash_kernel = ("jax/experimental/pallas/ops/tpu/splash_attention/"
+                     "splash_attention_kernel.py")
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "source": "ray_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:91",
          "launches": infer_launches[0] + train["launches"][0],
          "launches_inference": infer_launches[0],
          "launches_train": train["launches"][0],
+         "launches_autotune": tune_launches[0],
          "launches_per_forward": fwd["launches_per_forward"],
          "launches_per_train_step": train["per_step"][0],
          "max_abs_err": main_o, "lse_max_abs_err": main_lse,
@@ -811,6 +1149,7 @@ def main() -> int:
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1],
+         "launches_autotune": tune_launches[1],
          "launches_per_train_step": train["per_step"][1],
          "max_abs_err": train_errs["dq"],
          **bwd_times["dq"], "library_covers": "dq+dk+dv",
@@ -818,10 +1157,24 @@ def main() -> int:
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2],
+         "launches_autotune": tune_launches[2],
          "launches_per_train_step": train["per_step"][2],
          "max_abs_err": max(train_errs["dk"], train_errs["dv"]),
          **bwd_times["dkv"], "library_covers": "dq+dk+dv",
          "shape": list(TRAIN_CASE[1]), **common},
+        {"name": "splash_fwd", "replaces": f"{splash_kernel}:696",
+         "launches": tune_launches[3], "max_abs_err": splash_main["o"],
+         "lse_max_abs_err": splash_main["lse"], **splash_times["fwd"],
+         **splash_common},
+        {"name": "splash_bwd_dq", "replaces": f"{splash_kernel}:1307",
+         "launches": tune_launches[4], "max_abs_err": splash_main["dq"],
+         **splash_times["dq"], "library_covers": "dq+dk+dv",
+         **splash_common},
+        {"name": "splash_bwd_dkv", "replaces": f"{splash_kernel}:1669",
+         "launches": tune_launches[5],
+         "max_abs_err": max(splash_main["dk"], splash_main["dv"]),
+         **splash_times["dkv"], "library_covers": "dq+dk+dv",
+         **splash_common},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.autotune.dispatch import choose
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 from ray_tpu_torch.ops.paged_attention import (append_kv, paged_attention,
                                                prefill_kv)
@@ -55,8 +56,10 @@ class GPTConfig:
     # is not re-run); "attn_dots" saves both.
     remat: bool = True
     remat_policy: str = "full"   # "full" | "dots" | "attn" | "attn_dots"
-    # "auto" picks flash at S >= 1024 (S % 128 == 0) on a CUDA device and
-    # dense otherwise; "dense" and "flash" pin the implementation.
+    # "auto" takes the autotune cache's measured crossover record for the
+    # shape when there is one, else flash at S >= 1024 (S % 128 == 0) on
+    # a CUDA device and dense otherwise; "dense" and "flash" pin the
+    # implementation.
     attention: str = "auto"
     # Sequence-block size of the blocked cross-entropy head (0 = the full
     # [B, S, V] logits).
@@ -205,13 +208,26 @@ def _flash_causal_attention_bnsh(q, k, v):
     return flash_attention(q, k, v, True, None, None, None, "bnsh")
 
 
-def _attention_fn(cfg: GPTConfig, S: int, device: torch.device):
+def _auto_attention_variant(B: int, S: int, cfg: GPTConfig,
+                            device: torch.device) -> str:
+    """attention="auto": a measured crossover record of the autotune cache
+    wins when one exists for this shape and device; a cold cache keeps
+    the static rule, flash from S >= 1024 (S % 128 == 0) on a CUDA device
+    and dense below and on the CPU (RT_AUTOTUNE_ON_MISS=inline tunes
+    instead).  Only flash and dense are selectable here, as in the
+    reference."""
+    v, rec = choose(B, S, cfg.num_heads, cfg.head_dim, cfg.dtype,
+                    causal=True, allowed=("flash", "dense"), device=device)
+    if rec is not None:
+        return v
+    flash = S >= 1024 and S % 128 == 0 and device.type == "cuda"
+    return "flash" if flash else "dense"
+
+
+def _attention_fn(cfg: GPTConfig, B: int, S: int, device: torch.device):
     attention = cfg.attention
     if attention == "auto":
-        # The reference's static rule (the autotune lookup is not ported):
-        # flash from S >= 1024 on a device, dense below and on the CPU.
-        flash = S >= 1024 and S % 128 == 0 and device.type == "cuda"
-        attention = "flash" if flash else "dense"
+        attention = _auto_attention_variant(B, S, cfg, device)
     if attention == "flash":
         return _flash_causal_attention_bnsh
     if attention == "dense":
@@ -300,7 +316,7 @@ def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig
     if S > cfg.max_seq_len:
         raise ValueError(f"sequence {S} exceeds max_seq_len "
                          f"{cfg.max_seq_len}")
-    attn_fn = _attention_fn(cfg, S, tokens.device)
+    attn_fn = _attention_fn(cfg, B, S, tokens.device)
     block = functools.partial(_block, cfg, attn_fn)
     recording = torch.is_grad_enabled() and any(
         t.requires_grad for t in _leaves(params))
