@@ -10,7 +10,12 @@ Every phase prints one JSON line and any failure exits nonzero:
 
   device   torch's device name; nvidia-smi's name and power limit (also
            printed raw, as nvidia-smi gives them)
-  build    nvcc seconds and the ptxas register/spill lines of each source
+  build    nvcc seconds and the ptxas register/spill/warning lines of each
+           source; for each redesigned kernel (the bf16 splash forward and
+           dk/dv at both head dims) its registers and spills, whether
+           ptxas ignored setmaxnreg (C7508), and whether its SASS
+           (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA loads);
+           the phase fails if one lacks either or setmaxnreg was ignored
   kernel   the flash kernel against its plain version run in f32 on the
            same seeded inputs: the forward's shape (bf16, causal,
            [4,12,1024,64] bnsh), non-causal, bsnh, f32, ragged tails, the
@@ -44,8 +49,8 @@ Every phase prints one JSON line and any failure exits nonzero:
            their plain versions run in f32: Llama 2 7B's attention
            [2,32,4096,128] bf16 causal at 128-blocks, [1,2,256,*] with
            partial, empty and full blocks (bf16, f32, H 64 and 128), one
-           map per head with unequal blocks, and [2,4,1024,128] at every
-           candidate block size of the sweep
+           map per head with unequal blocks (f32 at H 64, bf16 at H 128),
+           and [2,4,1024,128] at every candidate block size of the sweep
   autotune the autotune path under a fresh cache file ($RT_AUTOTUNE_CACHE
            set to a temporary file): tune_attention at (a) GPT-2-small's
            training attention [B=32,S=1024,N=12,H=64] (flash and dense
@@ -62,7 +67,9 @@ Every phase prints one JSON line and any failure exits nonzero:
            calls), the least time the card could take, its launches on
            the main paths (forward and serve for the forward kernel, the
            timed training steps for the flash kernels, the autotune path
-           for the splash kernels) and its error
+           for the splash kernels) and its error; the splash kernels also
+           their achieved TFLOP/s, the share of their bound they reach and
+           their design ("wgmma+tma" or "mma.sync")
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits nonzero before printing any result.
@@ -75,6 +82,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -213,6 +221,75 @@ def named_leaves(tree, prefix=""):
 
 
 # ------------------------------------------------------------------ phases
+
+# The kernels redesigned on wgmma, TMA and warp specialisation (bf16, head
+# dims 64 and 128), by the name each has in the library.
+REDESIGNED = ("splash_fwd_kernel", "splash_dkv_kernel")
+REDESIGNED_SOURCE = "splash_attention.cu"
+
+
+def ptxas_by_kernel(lines):
+    """{mangled kernel name: the ptxas lines that follow its "Compiling
+    entry function" line}."""
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(ln)
+    return out
+
+
+def sass_by_kernel(lib):
+    """{mangled kernel name: its SASS} of a built library, read with
+    cuobjdump -sass from the toolkit beside nvcc."""
+    from ray_tpu_torch.ops import _build
+    sass = subprocess.run([_build.find_tool("cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        out[name.strip()] = body
+    return out
+
+
+def phase_build():
+    """Build every source (one nvcc each, in parallel) and show, for each
+    redesigned kernel, its registers, spills and ptxas warnings, whether
+    setmaxnreg was ignored (C7508), and whether its SASS holds HGMMA
+    (wgmma) and UTMALDG (TMA tile loads)."""
+    from ray_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    secs = time.perf_counter() - t0
+    ptxas = built[REDESIGNED_SOURCE]["ptxas"]
+    per_kernel = ptxas_by_kernel(ptxas)
+    sass = sass_by_kernel(_build.library_path(REDESIGNED_SOURCE))
+    redesigned = {}
+    for name, body in sorted(sass.items()):
+        if not any(k in name for k in REDESIGNED):
+            continue
+        lines = per_kernel.get(name, [])
+        regs = re.search(r"Used (\d+) registers", " ".join(lines))
+        redesigned[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spills": next((ln for ln in lines if "spill" in ln), None),
+            "setmaxnreg_ignored": any("C7508" in ln for ln in lines),
+            "warnings": [ln for ln in lines
+                         if re.search(r"warning|\(C\d+\)", ln, re.I)],
+            "HGMMA": "HGMMA" in body, "UTMALDG": "UTMALDG" in body}
+    ignored = [ln for ln in ptxas if "C7508" in ln]
+    emit("build", seconds=secs, sources=list(built.values()),
+         redesigned=redesigned, setmaxnreg_ignored_lines=ignored)
+    check(len(redesigned) == 2 * len(REDESIGNED),
+          f"redesigned kernels found in the library: {sorted(redesigned)}")
+    missing = [n for n, r in redesigned.items()
+               if not (r["HGMMA"] and r["UTMALDG"])]
+    check(not missing, f"no HGMMA or no UTMALDG in the SASS of {missing}")
+    check(not ignored, f"ptxas ignored setmaxnreg: {ignored}")
+    return redesigned
 
 
 def phase_kernel(dev, cases=KERNEL_CASES):
@@ -793,9 +870,15 @@ SPLASH_CASES = [
     ("H64 bf16", (1, 2, 256, 64), "bfloat16", (128, 128), (128, 128), ()),
     ("per-head offsets, unequal blocks f32", (2, 2, 512, 64), "float32",
      (256, 128), (128, 256), (0, 128)),
+    ("per-head offsets, unequal blocks bf16 H128", (2, 2, 512, 128),
+     "bfloat16", (256, 128), (128, 256), (0, 128)),
 ] + [(f"blocks fwd {f} bwd {b}", (2, 4, 1024, 128), "bfloat16", (f, f),
       (b, b), ()) for f in (128, 256, 512) for b in (128, 256, 512)]
 SPLASH_MAIN = SPLASH_CASES[0]
+# The design of each bf16 splash kernel: "wgmma+tma" (warp-specialised,
+# TMA ring, wgmma from shared memory) or "mma.sync" (the first design).
+SPLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "mma.sync",
+                      "dkv": "wgmma+tma"}
 
 
 def splash_case_inputs(gen, dev, shape, dtype, n):
@@ -1008,6 +1091,8 @@ def phase_splash_kernel_times(dev):
     # the (query, key) pairs the mask leaves visible, over all heads
     pairs = sum(int(m[0:S, 0:S].sum())
                 for m in sp.causal_mha_mask(N, S).masks)
+    tflop = {kind: FLASH_WORK[kind][2] * 2 * H * pairs * B / 1e12
+             for kind in FLASH_WORK}
     calls = {
         "fwd": (lambda: sp._launch_fwd(q, k, v, offsets, rows, *blocks),
                 "splash_fwd_kernel",
@@ -1022,10 +1107,13 @@ def phase_splash_kernel_times(dev):
     out = {}
     for kind, (fn, kernel, plain) in calls.items():
         bound, bound_by = splash_bound_ms(kind, B, N, S, H, pairs)
-        out[kind] = {"ms": device_ms(fn, kernel, 20),
-                     "event_ms": time_ms(fn, 20),
+        ms = device_ms(fn, kernel, 20)
+        out[kind] = {"ms": ms, "event_ms": time_ms(fn, 20),
                      "plain_ms": time_ms(plain, 2),
-                     "bound_ms": bound, "bound_by": bound_by}
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "tflops": tflop[kind] / (ms / 1e3),
+                     "bound_share": bound / ms,
+                     "design": SPLASH_BF16_DESIGN[kind]}
     ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
 
     def sdpa():
@@ -1072,7 +1160,6 @@ def main() -> int:
 def run() -> int:
     import torch
     from ray_tpu_torch.models import GPTConfig, gpt_init
-    from ray_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1084,10 +1171,7 @@ def run() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    emit("build", seconds=time.perf_counter() - t0,
-         sources=list(built.values()))
+    phase_build()
 
     errs = phase_kernel(dev)
     bwd_errs = phase_kernel_bwd(dev)

@@ -43,7 +43,8 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
-def _lib_path(source: str) -> str:
+def library_path(source: str) -> str:
+    """Where the library of ``csrc/<source>`` is (or will be) built."""
     h = hashlib.sha256()
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
         h.update(f.read())
@@ -52,9 +53,20 @@ def _lib_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
+def find_tool(name: str) -> str:
+    """A CUDA toolkit program (``cuobjdump``, ...) beside nvcc."""
+    path = os.path.join(os.path.dirname(find_nvcc()), name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found beside nvcc ({path})")
+    return path
+
+
 def _ptxas_lines(log: str) -> List[str]:
+    """The lines of an nvcc log that name each kernel, give its registers
+    and spills, or warn (e.g. C7508: setmaxnreg ignored)."""
     return [ln.strip() for ln in log.splitlines()
-            if re.search(r"entry function|registers|spill", ln)]
+            if re.search(r"entry function|registers|spill|warning|\(C\d+\)",
+                         ln, re.IGNORECASE)]
 
 
 def _compile(source: str, out: str) -> dict:
@@ -77,15 +89,16 @@ def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Compile every given source (default: all of ``csrc/*.cu``) that has
     no library yet, one nvcc process per source, all started together.
     Returns, per source, the nvcc seconds (0.0 when a built library was
-    reused) and the ptxas lines of the build that name each kernel and
-    give its registers and spills."""
+    reused) and the ptxas lines of the build that name each kernel, give
+    its registers and spills, or warn."""
     if sources is None:
         sources = sorted(s for s in os.listdir(CSRC_DIR) if s.endswith(".cu"))
-    todo = [s for s in sources if not os.path.exists(_lib_path(s))]
+    todo = [s for s in sources if not os.path.exists(library_path(s))]
     results = {}
     if todo:
         with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
-            futs = {s: pool.submit(_compile, s, _lib_path(s)) for s in todo}
+            futs = {s: pool.submit(_compile, s, library_path(s))
+                    for s in todo}
         results = {s: f.result() for s, f in futs.items()}
     return {s: results.get(s, {"source": s, "nvcc_s": 0.0, "ptxas": []})
             for s in sources}
@@ -97,6 +110,6 @@ def load(source: str) -> ctypes.CDLL:
         lib = _libs.get(source)
         if lib is None:
             build_all([source])
-            lib = ctypes.CDLL(_lib_path(source))
+            lib = ctypes.CDLL(library_path(source))
             _libs[source] = lib
         return lib

@@ -19,6 +19,9 @@ more:
   (``splash_attention_reference``, ``splash_dq_reference``,
   ``splash_dkv_reference``), which walks the same block lists.  There is no
   fallback between the two: a CUDA tensor goes to the kernels or raises.
+  In bf16 the forward and dk/dv are warp-specialised wgmma kernels fed by
+  TMA; they read q, k, v and do through TMA maps, which is why the inputs'
+  base and byte strides must be 16-byte aligned.
 
 Numerics follow the reference: q arrives pre-scaled and nothing applies a
 scale; masked scores take ``MASK_VALUE = -0.7 * finfo(f32).max``; softmax
@@ -379,7 +382,10 @@ def _check_qkv(q, k, v, mask_info: MaskInfo):
 
 
 def _check_kernel_inputs(q, **others):
-    """What the CUDA kernels accept; anything else raises."""
+    """What the CUDA kernels accept; anything else raises.  Besides dtype
+    and head dim, the TMA maps of the bf16 kernels (and the 16-byte vector
+    loads of the others) need each tensor's head dim contiguous, its base
+    16-byte aligned and its byte strides multiples of 16."""
     for name, x in others.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -397,8 +403,9 @@ def _check_kernel_inputs(q, **others):
             raise ValueError(f"{name}: the head dim must be contiguous "
                              f"(stride {x.stride(-1)})")
         if x.data_ptr() % 16 or any(st % vec for st in x.stride()[:3]):
-            raise ValueError(f"{name}: the kernel reads 16-byte vectors; "
-                             "base and strides must be 16-byte aligned")
+            raise ValueError(f"{name}: the kernels read 16-byte vectors and "
+                             "TMA tiles; base and byte strides must be "
+                             "multiples of 16")
 
 
 def _kernel_fn(name: str, argtypes):
@@ -468,6 +475,9 @@ def _launch_bwd(q, k, v, o, lse, do, offsets, rows, cols, bq, bkv):
     _check_kernel_inputs(q, k=k, v=v, o=o, do=do)
     di = _di(o, do)
     lse = lse.contiguous()
+    if lse.data_ptr() % 16:
+        raise ValueError("lse: the dk/dv kernel copies it in 16-byte "
+                         "aligned runs; its base must be 16-byte aligned")
     dq = _launch_dq(q, k, v, do, lse, di, offsets, rows, bq, bkv)
     dk, dv = _launch_dkv(q, k, v, do, lse, di, offsets, cols, bq, bkv)
     return dq, dk, dv

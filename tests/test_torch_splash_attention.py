@@ -234,3 +234,38 @@ def test_kernel_path_rejects_what_it_cannot_take():
     q16 = torch.empty((1, 2, 256, 128), device="meta", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sp._check_kernel_inputs(q16, k=q16, v=q16)
+
+
+def _bf16_view(kind):
+    """A bf16 [1, 2, 256, H] CPU tensor that the kernels' TMA maps cannot
+    take, or an fp16 one."""
+    if kind == "misaligned strides":          # row stride 129 elements
+        return torch.zeros(1, 2, 256, 129, dtype=torch.bfloat16)[..., :128]
+    if kind == "misaligned base":             # 2 bytes past an aligned base
+        flat = torch.zeros(2 * 256 * 128 + 1, dtype=torch.bfloat16)
+        return flat[1:].view(1, 2, 256, 128)
+    if kind == "head dim not contiguous":
+        return torch.zeros(1, 2, 128, 256, dtype=torch.bfloat16).transpose(
+            -1, -2)
+    if kind == "odd head dim":
+        return torch.zeros(1, 2, 256, 65, dtype=torch.bfloat16)
+    return torch.zeros(1, 2, 256, 128, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("kind, match", [
+    ("misaligned strides", "multiples of 16"),
+    ("misaligned base", "multiples of 16"),
+    ("head dim not contiguous", "contiguous"),
+    ("odd head dim", "head dims"),
+    ("fp16", "float32 or bfloat16"),
+])
+def test_kernel_inputs_guard_the_tma_maps(kind, match):
+    """The checks before a launch that keep the TMA maps valid: base and
+    byte strides multiples of 16, the head dim contiguous, a head dim and
+    dtype the kernels were built for."""
+    x = _bf16_view(kind)
+    good = torch.zeros(x.shape, dtype=x.dtype)
+    with pytest.raises(ValueError, match=match):
+        sp._check_kernel_inputs(good, k=good, v=x)
+    with pytest.raises(ValueError, match=match):
+        sp._check_kernel_inputs(x, k=x, v=x)

@@ -1,4 +1,5 @@
-"""The Hopper splash-attention kernels against their plain versions.
+"""The Hopper splash-attention kernels against their plain versions, and
+dk/dv bitwise deterministic over two runs.
 
 Every test here needs a CUDA card and skips without one.  The module
 imports nothing of JAX, so on the card (which has no JAX) it runs without
@@ -68,6 +69,9 @@ def _check_case(shape, dtype, fwd_blocks, bwd_blocks, device, offsets=()):
         err, scale = float((got.float() - ref).abs().max()), float(
             ref.abs().max())
         assert err <= BWD_TOL[dtype] * scale, f"{name}: {err} > tol x {scale}"
+    # No atomics: dk/dv run twice on the same inputs give the same bits.
+    dk2, dv2 = sp.splash_attention_bwd(q, k, v, o, lse, do, bi)[1:]
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.gpu
@@ -86,10 +90,11 @@ def test_every_candidate_block_size(cuda, fwd, bwd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_unequal_blocks_and_per_head_offsets(cuda, dtype):
+@pytest.mark.parametrize("dtype, H", [("float32", 64), ("bfloat16", 64),
+                                      ("bfloat16", 128)])
+def test_unequal_blocks_and_per_head_offsets(cuda, dtype, H):
     """block_q != block_kv, and one map per head (offsets 0 and 128)."""
-    _check_case((2, 2, 512, 64), dtype, (256, 128), (128, 256), cuda,
+    _check_case((2, 2, 512, H), dtype, (256, 128), (128, 256), cuda,
                 offsets=(0, 128))
 
 
