@@ -11,11 +11,13 @@ Every phase prints one JSON line and any failure exits nonzero:
   device   torch's device name; nvidia-smi's name and power limit (also
            printed raw, as nvidia-smi gives them)
   build    nvcc seconds and the ptxas register/spill/warning lines of each
-           source; for each redesigned kernel (the bf16 splash forward and
-           dk/dv at both head dims) its registers and spills, whether
+           source; for each redesigned kernel (the bf16 splash forward, dq
+           and dk/dv and the bf16 flash forward, each at head dims 64 and
+           128: eight instantiations) its registers and spills, whether
            ptxas ignored setmaxnreg (C7508), and whether its SASS
            (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA loads);
-           the phase fails if one lacks either or setmaxnreg was ignored
+           the phase fails if one is missing, lacks either, spills, or
+           setmaxnreg was ignored
   kernel   the flash kernel against its plain version run in f32 on the
            same seeded inputs: the forward's shape (bf16, causal,
            [4,12,1024,64] bnsh), non-causal, bsnh, f32, ragged tails, the
@@ -61,15 +63,22 @@ Every phase prints one JSON line and any failure exits nonzero:
            attention="auto" takes the record; then the bf16 grads of the
            splash variant at (b) no further from the f32 dense grads than
            REL_MULT x the bf16 dense grads' distance
+  attention_shapes  device times of the bf16 flash forward (causal and
+           not), the splash forward and dq, and SDPA's forward at
+           GPT-2-small's inference and training calls, a long sequence
+           ([2,12,8192,64]) and shape (b)
   kernels  per kernel: its time, its plain version's, one library call's
            (scaled_dot_product_attention's forward, or its backward timed
            as forward+backward less forward: a yardstick the port never
            calls), the least time the card could take, its launches on
            the main paths (forward and serve for the forward kernel, the
            timed training steps for the flash kernels, the autotune path
-           for the splash kernels) and its error; the splash kernels also
-           their achieved TFLOP/s, the share of their bound they reach and
-           their design ("wgmma+tma" or "mma.sync")
+           for the splash kernels), its error and its bf16 design
+           ("wgmma+tma" or "mma.sync"); the splash kernels also their
+           achieved TFLOP/s and the share of their bound they reach; the
+           flash forward is timed at the inference call [4,12,1024,64] and
+           at the training call [32,12,1024,64], each with the device time
+           of scaled_dot_product_attention's forward beside its event time
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits nonzero before printing any result.
@@ -223,9 +232,12 @@ def named_leaves(tree, prefix=""):
 # ------------------------------------------------------------------ phases
 
 # The kernels redesigned on wgmma, TMA and warp specialisation (bf16, head
-# dims 64 and 128), by the name each has in the library.
-REDESIGNED = ("splash_fwd_kernel", "splash_dkv_kernel")
-REDESIGNED_SOURCE = "splash_attention.cu"
+# dims 64 and 128), as (source, the name each has in its library).
+REDESIGNED = [("splash_attention.cu", "splash_fwd_kernel"),
+              ("splash_attention.cu", "splash_dq_kernel"),
+              ("splash_attention.cu", "splash_dkv_kernel"),
+              ("flash_fwd.cu", "flash_fwd_kernel")]
+REDESIGNED_HEAD_DIMS = (64, 128)
 
 
 def ptxas_by_kernel(lines):
@@ -264,30 +276,40 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = built[REDESIGNED_SOURCE]["ptxas"]
-    per_kernel = ptxas_by_kernel(ptxas)
-    sass = sass_by_kernel(_build.library_path(REDESIGNED_SOURCE))
-    redesigned = {}
-    for name, body in sorted(sass.items()):
-        if not any(k in name for k in REDESIGNED):
-            continue
-        lines = per_kernel.get(name, [])
-        regs = re.search(r"Used (\d+) registers", " ".join(lines))
-        redesigned[name] = {
-            "registers": int(regs.group(1)) if regs else None,
-            "spills": next((ln for ln in lines if "spill" in ln), None),
-            "setmaxnreg_ignored": any("C7508" in ln for ln in lines),
-            "warnings": [ln for ln in lines
-                         if re.search(r"warning|\(C\d+\)", ln, re.I)],
-            "HGMMA": "HGMMA" in body, "UTMALDG": "UTMALDG" in body}
-    ignored = [ln for ln in ptxas if "C7508" in ln]
+    redesigned, ignored = {}, []
+    for source in sorted({src for src, _ in REDESIGNED}):
+        kernels = [k for src, k in REDESIGNED if src == source]
+        ptxas = built[source]["ptxas"]
+        ignored += [ln for ln in ptxas if "C7508" in ln]
+        per_kernel = ptxas_by_kernel(ptxas)
+        sass = sass_by_kernel(_build.library_path(source))
+        for name, body in sorted(sass.items()):
+            # the length-prefixed name, so splash_dq_kernel is not
+            # splash_dq_f32_kernel
+            if not any(f"{len(k)}{k}" in name for k in kernels):
+                continue
+            lines = per_kernel.get(name, [])
+            regs = re.search(r"Used (\d+) registers", " ".join(lines))
+            spills = next((ln for ln in lines if "spill" in ln), None)
+            redesigned[name] = {
+                "source": source,
+                "registers": int(regs.group(1)) if regs else None,
+                "spills": spills,
+                "spilled": bool(spills and
+                                re.search(r"[1-9]\d* bytes spill", spills)),
+                "setmaxnreg_ignored": any("C7508" in ln for ln in lines),
+                "warnings": [ln for ln in lines
+                             if re.search(r"warning|\(C\d+\)", ln, re.I)],
+                "HGMMA": "HGMMA" in body, "UTMALDG": "UTMALDG" in body}
     emit("build", seconds=secs, sources=list(built.values()),
          redesigned=redesigned, setmaxnreg_ignored_lines=ignored)
-    check(len(redesigned) == 2 * len(REDESIGNED),
-          f"redesigned kernels found in the library: {sorted(redesigned)}")
+    check(len(redesigned) == len(REDESIGNED) * len(REDESIGNED_HEAD_DIMS),
+          f"redesigned kernels found in the libraries: {sorted(redesigned)}")
     missing = [n for n, r in redesigned.items()
                if not (r["HGMMA"] and r["UTMALDG"])]
     check(not missing, f"no HGMMA or no UTMALDG in the SASS of {missing}")
+    spilled = [n for n, r in redesigned.items() if r["spilled"]]
+    check(not spilled, f"redesigned kernels that spill: {spilled}")
     check(not ignored, f"ptxas ignored setmaxnreg: {ignored}")
     return redesigned
 
@@ -742,9 +764,10 @@ FLASH_WORK = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}
 
 def device_ms(fn, kernel, iters):
     """Warm, then the device time per call of the kernels whose name holds
-    ``kernel``, from torch.profiler (CUPTI) over ``iters`` calls: the
-    kernel's own time even where the host cannot enqueue calls as fast as
-    the card runs them."""
+    ``kernel`` (every kernel the call launches when ``kernel`` is None),
+    from torch.profiler (CUPTI) over ``iters`` calls: the kernels' own time
+    even where the host cannot enqueue calls as fast as the card runs
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -756,8 +779,8 @@ def device_ms(fn, kernel, iters):
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.key)
-    check(us > 0, f"the profiler saw no {kernel} kernel")
+             and (kernel is None or kernel in e.key))
+    check(us > 0, f"the profiler saw no {kernel or 'device'} kernel")
     return us / 1e3 / iters
 
 
@@ -776,10 +799,13 @@ def flash_bound_ms(B, N, S, H, dtype, causal, kind="fwd"):
 
 
 def phase_kernel_times(dev, B, N, S, H):
-    """The main-path call (bf16, causal, strided bnsh views of one fused
-    qkv projection) timed three ways.  ``ms`` is the kernel's device time;
-    ``event_ms`` the wrapper's time per call between CUDA events, which
-    the host's dispatch bounds when it is slower than the kernel."""
+    """A main-path call of the forward kernel (bf16, causal, strided bnsh
+    views of one fused qkv projection) timed three ways.  ``ms`` is the
+    kernel's device time; ``event_ms`` the wrapper's time per call between
+    CUDA events, which the host's dispatch bounds when it is slower than
+    the kernel.  The library yardstick, scaled_dot_product_attention's
+    forward on the same views, likewise: ``library_ms`` the device time of
+    every kernel it launches, ``library_event_ms`` between events."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops.flash_attention import (flash_attention_fwd,
@@ -790,15 +816,23 @@ def phase_kernel_times(dev, B, N, S, H):
     def call():
         return flash_attention_fwd(q, k, v, True, layout="bnsh")
 
-    kernel = device_ms(call, "flash_fwd_kernel", 50)
-    event = time_ms(call, 50)
-    plain = time_ms(lambda: flash_attention_reference(q, k, v, True,
-                                                      layout="bnsh"), 5)
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 50)
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    # "flash_fwd_" names both the wgmma kernel (flash_fwd_kernel) and the
+    # mma.sync one (flash_fwd_mma_kernel), whichever this call launches
+    kernel = device_ms(call, "flash_fwd_", 50)
     bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True)
-    return {"ms": kernel, "event_ms": event, "plain_ms": plain,
-            "library_ms": library, "bound_ms": bound, "bound_by": bound_by}
+    flop = FLASH_WORK["fwd"][2] * 2 * H * S * (S + 1) // 2 * B * N
+    return {"shape": [B, N, S, H], "ms": kernel,
+            "event_ms": time_ms(call, 50),
+            "plain_ms": time_ms(lambda: flash_attention_reference(
+                q, k, v, True, layout="bnsh"), 3),
+            "library_ms": device_ms(sdpa, None, 50),
+            "library_event_ms": time_ms(sdpa, 50),
+            "bound_ms": bound, "bound_by": bound_by,
+            "tflops": flop / 1e12 / (kernel / 1e3),
+            "bound_share": bound / kernel}
 
 
 def phase_kernel_bwd_times(dev, B, N, S, H):
@@ -875,10 +909,13 @@ SPLASH_CASES = [
 ] + [(f"blocks fwd {f} bwd {b}", (2, 4, 1024, 128), "bfloat16", (f, f),
       (b, b), ()) for f in (128, 256, 512) for b in (128, 256, 512)]
 SPLASH_MAIN = SPLASH_CASES[0]
-# The design of each bf16 splash kernel: "wgmma+tma" (warp-specialised,
-# TMA ring, wgmma from shared memory) or "mma.sync" (the first design).
-SPLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "mma.sync",
+# The design of each bf16 kernel on its main path: "wgmma+tma"
+# (warp-specialised, TMA ring, wgmma from shared memory) or "mma.sync" (the
+# first design).
+SPLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "wgmma+tma",
                       "dkv": "wgmma+tma"}
+FLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "mma.sync",
+                     "dkv": "mma.sync"}
 
 
 def splash_case_inputs(gen, dev, shape, dtype, n):
@@ -1137,6 +1174,48 @@ def phase_splash_kernel_times(dev):
     return out
 
 
+# Where the bf16 forward kernels stand against SDPA's forward beyond the
+# main paths' shapes: GPT-2-small's inference and training calls, a long
+# sequence at its head dim, and shape (b).
+ATTENTION_SHAPES = [(4, 12, 1024, 64), (32, 12, 1024, 64),
+                    (2, 12, 8192, 64), SPLASH_SHAPE]
+
+
+def phase_attention_shapes(dev, shapes=ATTENTION_SHAPES):
+    """At each shape ([B, N, S, H], bf16, q/k/v strided bnsh views of one
+    fused qkv projection): device ms of the flash forward and of
+    scaled_dot_product_attention's forward, causal and not, and of the
+    splash forward and dq over the causal map at 128-blocks."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import splash_attention as sp
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    for B, N, S, H in shapes:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v, do = case_inputs(gen, dev, (B, N, S, H), "bfloat16", True, 4)
+        row = {}
+        for causal in (True, False):
+            tag = "causal" if causal else "full"
+            row[f"flash_fwd_{tag}_ms"] = device_ms(
+                lambda: flash_attention_fwd(q, k, v, causal, layout="bnsh"),
+                "flash_fwd_", 20)
+            row[f"sdpa_fwd_{tag}_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                None, 20)
+        info = sp.process_mask(sp.causal_mha_mask(N, S), (128, 128))
+        offsets, rows, _ = info.tensors(dev)
+        o, lse = sp._launch_fwd(q, k, v, offsets, rows, 128, 128)
+        di = sp._di(o, do)
+        row["splash_fwd_ms"] = device_ms(lambda: sp._launch_fwd(
+            q, k, v, offsets, rows, 128, 128), "splash_fwd_", 20)
+        row["splash_bwd_dq_ms"] = device_ms(lambda: sp._launch_dq(
+            q, k, v, do, lse, di, offsets, rows, 128, 128), "splash_dq_", 20)
+        emit("attention_shapes", shape=[B, N, S, H], dtype="bfloat16",
+             **row)
+        del q, k, v, do, o, lse, di
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1204,8 +1283,11 @@ def run() -> int:
     torch.cuda.empty_cache()
 
     times = phase_kernel_times(dev, *MAIN_CASE[1])
+    train_times = phase_kernel_times(dev, *TRAIN_CASE[1])
+    emit("kernel_times", inference_call=times, train_call=train_times)
     bwd_times = phase_kernel_bwd_times(dev, *TRAIN_CASE[1])
     splash_times = phase_splash_kernel_times(dev)
+    phase_attention_shapes(dev)
     main_o, main_lse = errs[MAIN_CASE[0]]
     train_errs = bwd_errs[TRAIN_CASE[0]]
     splash_main = splash_errs[SPLASH_MAIN[0]]
@@ -1229,7 +1311,8 @@ def run() -> int:
          "max_abs_err": main_o, "lse_max_abs_err": main_lse,
          "train_call_max_abs_err": errs[TRAIN_CASE[0]][0],
          "train_call_lse_max_abs_err": errs[TRAIN_CASE[0]][1],
-         **times, "shape": list(MAIN_CASE[1]), **common},
+         **times, "train_call": train_times,
+         "design": FLASH_BF16_DESIGN["fwd"], **common},
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1],
@@ -1237,7 +1320,8 @@ def run() -> int:
          "launches_per_train_step": train["per_step"][1],
          "max_abs_err": train_errs["dq"],
          **bwd_times["dq"], "library_covers": "dq+dk+dv",
-         "shape": list(TRAIN_CASE[1]), **common},
+         "design": FLASH_BF16_DESIGN["dq"], "shape": list(TRAIN_CASE[1]),
+         **common},
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2],
@@ -1245,7 +1329,8 @@ def run() -> int:
          "launches_per_train_step": train["per_step"][2],
          "max_abs_err": max(train_errs["dk"], train_errs["dv"]),
          **bwd_times["dkv"], "library_covers": "dq+dk+dv",
-         "shape": list(TRAIN_CASE[1]), **common},
+         "design": FLASH_BF16_DESIGN["dkv"], "shape": list(TRAIN_CASE[1]),
+         **common},
         {"name": "splash_fwd", "replaces": f"{splash_kernel}:696",
          "launches": tune_launches[3], "max_abs_err": splash_main["o"],
          "lse_max_abs_err": splash_main["lse"], **splash_times["fwd"],

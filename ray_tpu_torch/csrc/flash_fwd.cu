@@ -3,8 +3,11 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ray_tpu/ops/flash_attention.py,
 // launched by `_flash_fwd_impl`).  Same function: online softmax with a
 // running max m, running sum l and an f32 output accumulator; products in
-// the input dtype with f32 accumulation; mask value -1e30; finalize
-// o = acc / max(l, 1e-30) and lse = m + log(l) as f32 [B*N, S].
+// the input dtype with f32 accumulation; scores scaled by sm_scale (in the
+// log2 domain, scale_log2 = sm_scale * log2(e)); mask value -1e30; causal
+// masks col > row; keys at or past S are masked and rows at or past S are
+// neither stored nor written to lse; finalize o = acc / max(l, 1e-30) and
+// lse = m + log(l) as f32 [B*N, S].
 //
 // What bounds it.  At the GPT-2-small forward shape (bf16, causal,
 // [4,12,1024,64]) the function must move 25.2 MB of q/k/v/o plus 0.2 MB of
@@ -13,7 +16,25 @@
 // kernel must stream K/V once per query tile from L2, keep the [S, S]
 // scores out of device memory, and feed the tensor cores.
 //
-// Design (a first, simple kernel; wgmma, TMA and pipelining come later):
+// Two kernels; the dtype and head dim pick one, and nothing falls back
+// from one to the other.
+//
+// bf16 at head dims 64 and 128, `flash_fwd_kernel`: the splash forward's
+// design (csrc/splash_attention.cu, helpers in csrc/hopper.cuh) with the
+// flash kernel's own function.  One block of three warpgroups per
+// (batch*head, 128-row query tile), heaviest causal tiles first.  One
+// producer thread loads Q once and streams 128-key K and V tiles through a
+// 2-stage TMA ring (4-d maps over [B, N, S, H] with the caller's strides,
+// so bnsh, bsnh and strided views of a fused qkv projection are read in
+// place; rows past S arrive as zeros); two consumer warpgroups of 64 rows
+// each run S = Q K^T (wgmma, both from shared memory) and O += P V (P from
+// registers, V read through the transpose flag: no transposed copy).  The
+// causal loop bound comes from the tile index, and only the diagonal tile
+// and a ragged last tile are masked.  Registers: S 64 + O HD/2 f32 and the
+// packed P 32 fit the consumers' 240; one block per SM (384 threads).
+//
+// f32 at every head dim, and bf16 at head dims 16 and 32,
+// `flash_fwd_mma_kernel` (the first design):
 //   * one thread block of 4 warps per (batch*head, 64-row query tile); the
 //     TPU grid's sequential third dimension becomes a loop inside the block
 //     over 64-key K/V tiles staged in shared memory;
@@ -27,16 +48,12 @@
 //   * the ragged tail (S not a multiple of 64) is zero-filled on load and
 //     masked, so any S works;
 //   * q, k, v and o are addressed through element strides for batch, head
-//     and sequence with the head dimension contiguous, so head-major (bnsh)
-//     views of a fused qkv projection and seq-major (bsnh) tensors are read
-//     in place, with no copy or transpose.
+//     and sequence with the head dimension contiguous.
 //
 // Plain C entry point (no PyTorch headers): rt_flash_fwd returns the
 // cudaError_t of the launch; the Python wrapper raises when it is nonzero.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,14 +63,84 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kNT = kBlockK / 8;  // 8-key n-tiles of the score fragment
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
-typedef __nv_bfloat16 bf16;
+// ============================================================ wgmma
 
-struct View {  // element strides of a [B, N, S, H] view, H contiguous
-  long long b, n, s;
-};
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ o, float* __restrict__ lse, int N,
+                     int S, View ov, int causal, float scale_log2) {
+  using L = FwdLayout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  auto full = [=](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [=](int s) { return q_full + 8 * (1 + kStages + s); };
+
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int q0 = qt * 128;
+  const int n_kt = causal ? qt + 1 : (S + 127) / 128;
+
+  init_ring_barriers(q_full);
+
+  if (threadIdx.x < kWg) {
+    // Producer: one thread loads Q, then the K/V tile of every key tile up
+    // to the causal bound, in the consumers' order.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int h = 0; h < HD / 64; ++h)
+        tma_load(base + h * L::kBox, &tq, q_full, h * 64, q0, n, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int stage = kt % kStages;
+        mbar_wait(empty(stage), ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(stage), 2 * L::kTile);
+        for (int h = 0; h < HD / 64; ++h) {
+          tma_load(L::k_tile(base, stage) + h * L::kBox, &tk, full(stage),
+                   h * 64, kt * 128, n, b);
+          tma_load(L::v_tile(base, stage) + h * L::kBox, &tv, full(stage),
+                   h * 64, kt * 128, n, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns query rows [64c, 64c + 64) of the tile.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / kWg - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * c + 16 * w + lane / 4;
+    const uint32_t q_rows = base + 64 * c * kRowBytes;
+    // the last key each of the thread's rows sees
+    const int last0 = causal ? min(row0, S - 1) : S - 1;
+    const int last1 = causal ? min(row0 + 8, S - 1) : S - 1;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    Softmax st{kNegInf, kNegInf, 0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int stage = kt % kStages, k0 = kt * 128;
+      mbar_wait(full(stage), (kt / kStages) & 1);
+      // the causal diagonal, and keys at or past S
+      fwd_tile<HD>(acc, st, q_rows, L::k_tile(base, stage),
+                   L::v_tile(base, stage), scale_log2, kNegInf,
+                   (causal && kt == qt) || k0 + 128 > S, last0 - k0,
+                   last1 - k0);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
+    }
+    fwd_store<HD>(o + b * ov.b + n * ov.n, ov.s, lse + (long long)bn * S,
+                  row0, S, acc, st);
+  }
+}
+
+// ============================================================ mma.sync
 
 // Shared-memory layout per dtype.  Row pitches keep every row 16-byte
 // aligned (vector stores) and stagger rows across banks.
@@ -115,11 +202,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // D += A.B for one m16n8k16 tile: A 16x16 bf16 row-major fragment (4 regs),
 // B 16x8 bf16 column fragment (2 regs), D 16x8 f32 (4 regs).
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
@@ -138,10 +220,11 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int N, int S, View qv, View kv,
-                     View vv, View ov, int causal, float scale_log2) {
+    flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int N, int S, View qv,
+                         View kv, View vv, View ov, int causal,
+                         float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kPitch = Layout<T, HD>::kPitch;
@@ -367,40 +450,71 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ================================================================ launch
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, N, S;
+  View qv, kv, vv, ov;
+  int causal;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int N, int S, View qv, View kv, View vv,
-                   View ov, int causal, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_mma(const Args& a) {
   const size_t smem = Layout<T, HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = set_smem(flash_fwd_mma_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * N);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, N, S, qv, kv, vv, ov,
-      causal, sm_scale * kLog2e);
+  const dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.B * a.N);
+  flash_fwd_mma_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.N, a.S, a.qv,
+      a.kv, a.vv, a.ov, a.causal, a.scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
-                              const void* v, void* o, float* lse, int B, int N,
-                              int S, View qv, View kv, View vv, View ov,
-                              int causal, float sm_scale, cudaStream_t st) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, N, S, qv, kv, vv, ov, causal, sm_scale, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, N, S, qv, kv, vv, ov, causal, sm_scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, N, S, qv, kv, vv, ov, causal, sm_scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, N, S, qv, kv, vv, ov, causal, sm_scale, st);
-    default:
-      return cudaErrorInvalidValue;
+template <int HD>
+cudaError_t launch_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = bf16_map(&tq, a.q, a.B, a.N, a.S, HD, a.qv, 128)) !=
+          cudaSuccess ||
+      (err = bf16_map(&tk, a.k, a.B, a.N, a.S, HD, a.kv, 128)) !=
+          cudaSuccess ||
+      (err = bf16_map(&tv, a.v, a.B, a.N, a.S, HD, a.vv, 128)) != cudaSuccess)
+    return err;
+  const size_t smem = FwdLayout<HD>::kBytes;
+  if ((err = set_smem(flash_fwd_kernel<HD>, smem)) != cudaSuccess) return err;
+  const dim3 grid((a.S + 127) / 128, a.B * a.N);
+  flash_fwd_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
+      tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.N, a.S, a.ov, a.causal,
+      a.scale_log2);
+  return cudaGetLastError();
+}
+
+// dtype 0 (f32) takes the mma.sync kernel at every head dim; dtype 1
+// (bf16) the wgmma kernel at head dims 64 and 128, the mma.sync kernel at
+// 16 and 32.
+cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
+  if (dtype == 0) {
+    switch (head_dim) {
+      case 16: return launch_mma<float, 16>(a);
+      case 32: return launch_mma<float, 32>(a);
+      case 64: return launch_mma<float, 64>(a);
+      case 128: return launch_mma<float, 128>(a);
+    }
+  } else if (dtype == 1) {
+    switch (head_dim) {
+      case 16: return launch_mma<bf16, 16>(a);
+      case 32: return launch_mma<bf16, 32>(a);
+      case 64: return launch_wgmma<64>(a);
+      case 128: return launch_wgmma<128>(a);
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -415,19 +529,11 @@ extern "C" cudaError_t rt_flash_fwd(const void* q, const void* k, const void* v,
                             long long o_ss, int causal, float sm_scale,
                             void* stream) {
   if (B <= 0 || N <= 0 || S <= 0) return cudaSuccess;
-  const View qv{q_sb, q_sn, q_ss}, kv{k_sb, k_sn, k_ss}, vv{v_sb, v_sn, v_ss},
-      ov{o_sb, o_sn, o_ss};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_head_dim<float>(head_dim, q, k, v, o, lse, B, N, S,
-                                           qv, kv, vv, ov, causal, sm_scale, st);
-    case 1:
-      return dispatch_head_dim<bf16>(head_dim, q, k, v, o, lse, B, N, S,
-                                          qv, kv, vv, ov, causal, sm_scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, o, lse, B, N, S,
+               View{q_sb, q_sn, q_ss}, View{k_sb, k_sn, k_ss},
+               View{v_sb, v_sn, v_ss}, View{o_sb, o_sn, o_ss},
+               causal, sm_scale * kLog2e, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, head_dim, a);
 }
 
 // Message for an error code, so the wrapper can raise with it.

@@ -3,8 +3,9 @@
 Each source under ``ray_tpu_torch/csrc/`` is compiled by nvcc into its own
 shared library with a plain C interface and loaded with ctypes; no source
 includes PyTorch's headers, so a build takes seconds.  Libraries go to
-``ray_tpu_torch/_build/`` (git ignores it), named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
+``ray_tpu_torch/_build/`` (git ignores it), named by a hash of the source,
+every header in ``csrc/`` (``*.cuh``, which the sources include) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
 reused.  Nothing is built at import: the first CUDA call builds what it
 needs.
 """
@@ -44,10 +45,15 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library of ``csrc/<source>`` is (or will be) built."""
+    """Where the library of ``csrc/<source>`` is (or will be) built: named
+    by a hash of the source, every ``.cuh`` header beside it and the
+    flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(s for s in os.listdir(CSRC_DIR) if s.endswith(".cuh"))
+    for name in (source, *headers):
+        h.update(name.encode())
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

@@ -1,10 +1,13 @@
 """Flash (blockwise, online-softmax) attention, forward and backward.
 
 Port of ``ray_tpu/ops/flash_attention.py``.  On CUDA tensors the forward
-launches the hand-written Hopper kernel in ``csrc/flash_fwd.cu`` (which
-replaces the Pallas TPU kernel ``_fwd_kernel``) and the backward the two
-kernels of ``csrc/flash_bwd.cu`` (``_dq_kernel`` and ``_dkv_kernel``); on CPU
-tensors each runs its plain PyTorch version (``flash_attention_reference``;
+launches a hand-written Hopper kernel of ``csrc/flash_fwd.cu`` (which
+replaces the Pallas TPU kernel ``_fwd_kernel``: in bf16 at head dims 64 and
+128 the warp-specialised wgmma kernel fed by TMA, which reads q, k and v
+through TMA maps; otherwise the first, mma.sync design) and the backward
+the two kernels of ``csrc/flash_bwd.cu`` (``_dq_kernel`` and
+``_dkv_kernel``); on CPU tensors each runs its plain PyTorch version
+(``flash_attention_reference``;
 ``flash_attention_dq_reference`` and ``flash_attention_dkv_reference``,
 together ``flash_attention_bwd_reference``), which follows the same
 blockwise recurrence.  There is no fallback between the two: a CUDA tensor goes to
@@ -297,8 +300,9 @@ def _check_kernel_inputs(q, k, v, **more):
             raise ValueError(f"{name}: the head dim must be contiguous "
                              f"(stride {x.stride(-1)})")
         if x.data_ptr() % 16 or any(st % vec for st in x.stride()[:3]):
-            raise ValueError(f"{name}: the kernel reads 16-byte vectors; "
-                             "base and strides must be 16-byte aligned")
+            raise ValueError(f"{name}: the kernels read 16-byte vectors and "
+                             "TMA tiles; base and strides must be 16-byte "
+                             "aligned")
 
 
 def _check_qkv(q, k, v, layout: str):
@@ -321,6 +325,11 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: Optional[float],
     _check_kernel_inputs(q, k, v)
     qb, kb, vb = (_bnsh(x, layout) for x in (q, k, v))
     B, N, S, H = qb.shape
+    scale = _scale(sm_scale, H)
+    if not scale > 0:
+        # the wgmma kernel takes the row max of the unscaled scores
+        raise ValueError(f"the forward kernels take sm_scale > 0, not "
+                         f"{scale}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ob = _bnsh(o, layout)
     lse = torch.empty((B * N, S), dtype=torch.float32, device=q.device)
@@ -330,7 +339,7 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: Optional[float],
         err = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ob.data_ptr(),
                  lse.data_ptr(), _DTYPE_CODES[q.dtype], H, B, N, S,
                  *qb.stride()[:3], *kb.stride()[:3], *vb.stride()[:3],
-                 *ob.stride()[:3], int(causal), _scale(sm_scale, H), stream)
+                 *ob.stride()[:3], int(causal), scale, stream)
     _raise_on_error(err, lib, "flash_fwd")
     flash_attention.launches += 1
     return o, lse

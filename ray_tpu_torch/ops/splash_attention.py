@@ -19,9 +19,9 @@ more:
   (``splash_attention_reference``, ``splash_dq_reference``,
   ``splash_dkv_reference``), which walks the same block lists.  There is no
   fallback between the two: a CUDA tensor goes to the kernels or raises.
-  In bf16 the forward and dk/dv are warp-specialised wgmma kernels fed by
-  TMA; they read q, k, v and do through TMA maps, which is why the inputs'
-  base and byte strides must be 16-byte aligned.
+  In bf16 all three are warp-specialised wgmma kernels fed by TMA; they
+  read q, k, v and do through TMA maps, which is why the inputs' base and
+  byte strides must be 16-byte aligned.
 
 Numerics follow the reference: q arrives pre-scaled and nothing applies a
 scale; masked scores take ``MASK_VALUE = -0.7 * finfo(f32).max``; softmax

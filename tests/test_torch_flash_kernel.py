@@ -1,4 +1,7 @@
-"""The Hopper flash-attention kernel against its plain PyTorch version.
+"""The Hopper flash-attention forward kernels against their plain PyTorch
+version, and which kernel each dtype and head dim takes: bf16 at head dims
+64 and 128 the warp-specialised wgmma kernel (``flash_fwd_kernel``), f32
+and bf16 at 16 and 32 the mma.sync kernel (``flash_fwd_mma_kernel``).
 
 Every test here needs a CUDA card and skips without one.  The module
 imports nothing of JAX, so on the card (which has no JAX) it runs without
@@ -41,6 +44,34 @@ def _inputs(shape, device, dtype, seed=0):
             .to(device, dtype) for _ in range(3)]
 
 
+def _check_against_plain(q, k, v, causal, layout, dtype):
+    B, N, S = (q.shape[0], q.shape[1], q.shape[2]) if layout == "bnsh" \
+        else (q.shape[0], q.shape[2], q.shape[1])
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, layout=layout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert o.shape == q.shape and o.dtype == q.dtype
+    assert lse.shape == (B * N, S)
+    ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          causal, layout=layout)
+    atol_o, atol_lse = ATOL[dtype]
+    torch.testing.assert_close(o.float(), ro, atol=atol_o, rtol=atol_o)
+    torch.testing.assert_close(lse, rl, atol=atol_lse, rtol=0)
+
+
+def _launched_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("H", [16, 32, 64, 128])
@@ -49,16 +80,20 @@ def _inputs(shape, device, dtype, seed=0):
 def test_kernel_matches_plain(cuda, dtype, H, causal, layout, S):
     shape = (2, 3, S, H) if layout == "bnsh" else (2, S, 3, H)
     q, k, v = _inputs(shape, cuda, TORCH[dtype], seed=H)
-    before = fa.flash_attention.launches
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, layout=layout)
-    torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
-    assert o.shape == shape and o.dtype == q.dtype and lse.shape == (6, S)
-    ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(),
-                                          causal, layout=layout)
-    atol_o, atol_lse = ATOL[dtype]
-    torch.testing.assert_close(o.float(), ro, atol=atol_o, rtol=atol_o)
-    torch.testing.assert_close(lse, rl, atol=atol_lse, rtol=0)
+    _check_against_plain(q, k, v, causal, layout, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bnsh", "bsnh"])
+@pytest.mark.parametrize("S", [128, 200, 320, 1024])
+def test_wgmma_kernel_matches_plain(cuda, H, causal, layout, S):
+    """bf16 at the wgmma kernel's head dims, at S that fills one 128-row
+    tile, cuts one (200, 320) or spans eight."""
+    shape = (2, 3, S, H) if layout == "bnsh" else (2, S, 3, H)
+    q, k, v = _inputs(shape, cuda, torch.bfloat16, seed=S + H)
+    _check_against_plain(q, k, v, causal, layout, "bfloat16")
 
 
 @pytest.mark.gpu
@@ -75,10 +110,41 @@ def test_kernel_reads_strided_qkv_views(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("S", [128, 320])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_kernel_reads_strided_qkv_views(cuda, H, S, causal):
+    """The TMA maps of the wgmma kernel over qkv[:, i] views of one
+    [B, S, 3, N, H] projection (the training call's layout)."""
+    x = torch.from_numpy(np.random.default_rng(H + S).standard_normal(
+        (2, S, 3, 4, H)).astype(np.float32)).to(cuda, torch.bfloat16)
+    qkv = x.permute(0, 2, 3, 1, 4)
+    _check_against_plain(qkv[:, 0], qkv[:, 1], qkv[:, 2], causal, "bnsh",
+                         "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, H, kernel", [
+    ("bfloat16", 64, "flash_fwd_kernel<"),
+    ("bfloat16", 128, "flash_fwd_kernel<"),
+    ("bfloat16", 32, "flash_fwd_mma_kernel<"),
+    ("float32", 64, "flash_fwd_mma_kernel<")])
+def test_dtype_and_head_dim_pick_the_kernel(cuda, dtype, H, kernel):
+    q, k, v = _inputs((1, 2, 256, H), cuda, TORCH[dtype])
+    names = _launched_kernels(
+        lambda: fa.flash_attention_fwd(q, k, v, True, layout="bnsh"))
+    flash = [n for n in names if "flash_fwd_" in n]
+    assert len(flash) == 1 and kernel in flash[0], names
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 2, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sm_scale > 0"):
+        fa.flash_attention(q, q, q, sm_scale=0.0)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The Hopper splash-attention kernels against their plain versions, and
-dk/dv bitwise deterministic over two runs.
+"""The Hopper splash-attention kernels against their plain versions, dq
+and dk/dv bitwise deterministic over two runs, and the dtype picking the
+kernel (bf16: the warp-specialised wgmma kernels; f32: the first design).
 
 Every test here needs a CUDA card and skips without one.  The module
 imports nothing of JAX, so on the card (which has no JAX) it runs without
@@ -69,9 +70,11 @@ def _check_case(shape, dtype, fwd_blocks, bwd_blocks, device, offsets=()):
         err, scale = float((got.float() - ref).abs().max()), float(
             ref.abs().max())
         assert err <= BWD_TOL[dtype] * scale, f"{name}: {err} > tol x {scale}"
-    # No atomics: dk/dv run twice on the same inputs give the same bits.
-    dk2, dv2 = sp.splash_attention_bwd(q, k, v, o, lse, do, bi)[1:]
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    # No atomics: the backward run twice on the same inputs gives the same
+    # bits.
+    dq2, dk2, dv2 = sp.splash_attention_bwd(q, k, v, o, lse, do, bi)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and \
+        torch.equal(dv, dv2)
 
 
 @pytest.mark.gpu
@@ -85,8 +88,9 @@ def test_partial_empty_and_full_blocks(cuda, dtype, H):
 @pytest.mark.gpu
 @pytest.mark.parametrize("fwd", [128, 256, 512])
 @pytest.mark.parametrize("bwd", [128, 256, 512])
-def test_every_candidate_block_size(cuda, fwd, bwd):
-    _check_case((2, 4, 1024, 128), "bfloat16", (fwd, fwd), (bwd, bwd), cuda)
+@pytest.mark.parametrize("H", [64, 128])
+def test_every_candidate_block_size(cuda, fwd, bwd, H):
+    _check_case((2, 4, 1024, H), "bfloat16", (fwd, fwd), (bwd, bwd), cuda)
 
 
 @pytest.mark.gpu
@@ -129,3 +133,23 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
     q = torch.randn(1, 2, 256, 128, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sp.splash_attention(q, q, q, info)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, suffix", [("bfloat16", "_kernel<"),
+                                           ("float32", "_f32_kernel<")])
+def test_dtype_picks_the_kernels(cuda, dtype, suffix):
+    from torch.profiler import ProfilerActivity, profile
+    shape = (1, 2, 256, 128)
+    q, k, v, do = _inputs(shape, cuda, TORCH[dtype])
+    bi = sp.process_mask(sp.causal_mha_mask(2, 256), (128, 128))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, lse = sp.splash_attention_fwd(q, k, v, bi)
+        sp.splash_attention_bwd(q, k, v, o, lse, do, bi)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kind in ("fwd", "dq", "dkv"):
+        found = [n for n in names if f"splash_{kind}_" in n]
+        assert len(found) == 1 and f"splash_{kind}{suffix}" in found[0], \
+            names
