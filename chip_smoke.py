@@ -12,17 +12,19 @@ Every phase prints one JSON line and any failure exits nonzero:
            printed raw, as nvidia-smi gives them)
   build    nvcc seconds and the ptxas register/spill/warning lines of each
            source; for each redesigned kernel (the bf16 splash forward, dq
-           and dk/dv and the bf16 flash forward, each at head dims 64 and
-           128: eight instantiations) its registers and spills, whether
-           ptxas ignored setmaxnreg (C7508), and whether its SASS
-           (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA loads);
+           and dk/dv and the bf16 flash forward, dq and dk/dv, each at head
+           dims 64 and 128: twelve instantiations) its registers and
+           spills, whether ptxas ignored setmaxnreg (C7508), and whether
+           its SASS (cuobjdump -sass) holds HGMMA (wgmma) and UTMALDG (TMA
+           loads);
            the phase fails if one is missing, lacks either, spills, or
            setmaxnreg was ignored
   kernel   the flash kernel against its plain version run in f32 on the
            same seeded inputs: the forward's shape (bf16, causal,
            [4,12,1024,64] bnsh), non-causal, bsnh, f32, ragged tails, the
-           other head dims, and the training call ([32,12,1024,64] bf16
-           causal, q/k/v strided views of one fused qkv tensor)
+           other head dims, ragged S at the wgmma kernels' head dims, and
+           the training call ([32,12,1024,64] bf16 causal, q/k/v strided
+           views of one fused qkv tensor)
   kernel_bwd  the backward kernels (dq; dk and dv) against the plain
            backward run in f32 on the same seeded q, k, v, dO, over the
            same cases (dO contiguous): max |err| <= tol x max |ref| per
@@ -74,8 +76,11 @@ Every phase prints one JSON line and any failure exits nonzero:
            the main paths (forward and serve for the forward kernel, the
            timed training steps for the flash kernels, the autotune path
            for the splash kernels), its error and its bf16 design
-           ("wgmma+tma" or "mma.sync"); the splash kernels also their
-           achieved TFLOP/s and the share of their bound they reach; the
+           ("wgmma+tma" or "mma.sync"); all but the flash forward's entry
+           also their achieved TFLOP/s and the share of their bound they
+           reach (the flash forward's under "train_call" and at the
+           inference call); the flash backward's library time is SDPA's
+           backward by device time, its event time beside it; the
            flash forward is timed at the inference call [4,12,1024,64] and
            at the training call [32,12,1024,64], each with the device time
            of scaled_dot_product_attention's forward beside its event time
@@ -123,6 +128,12 @@ KERNEL_CASES = [
      False),
     ("H128 S256 bf16", (2, 4, 256, 128), "bnsh", False, "bfloat16", False),
     ("H128 S256 f32", (2, 4, 256, 128), "bnsh", True, "float32", False),
+    # Ragged S on the wgmma kernels: padded queries in the dk/dv kernel, a
+    # ragged key tile in dq.
+    ("ragged H64 S200 bsnh causal bf16", (2, 200, 4, 64), "bsnh", True,
+     "bfloat16", False),
+    ("ragged H128 S320 bnsh bf16", (2, 4, 320, 128), "bnsh", False,
+     "bfloat16", False),
     # The training call (bench.py's batch): q/k/v as the GPT block hands
     # them over, dO contiguous as autograd does.
     ("train call bnsh causal bf16 qkv views", (32, 12, 1024, 64), "bnsh",
@@ -236,7 +247,9 @@ def named_leaves(tree, prefix=""):
 REDESIGNED = [("splash_attention.cu", "splash_fwd_kernel"),
               ("splash_attention.cu", "splash_dq_kernel"),
               ("splash_attention.cu", "splash_dkv_kernel"),
-              ("flash_fwd.cu", "flash_fwd_kernel")]
+              ("flash_fwd.cu", "flash_fwd_kernel"),
+              ("flash_bwd.cu", "flash_bwd_dq_kernel"),
+              ("flash_bwd.cu", "flash_bwd_dkv_kernel")]
 REDESIGNED_HEAD_DIMS = (64, 128)
 
 
@@ -285,7 +298,8 @@ def phase_build():
         sass = sass_by_kernel(_build.library_path(source))
         for name, body in sorted(sass.items()):
             # the length-prefixed name, so splash_dq_kernel is not
-            # splash_dq_f32_kernel
+            # splash_dq_f32_kernel and flash_bwd_dq_kernel not
+            # flash_bwd_dq_mma_kernel
             if not any(f"{len(k)}{k}" in name for k in kernels):
                 continue
             lines = per_kernel.get(name, [])
@@ -838,9 +852,12 @@ def phase_kernel_times(dev, B, N, S, H):
 def phase_kernel_bwd_times(dev, B, N, S, H):
     """The training call of each backward kernel (bf16, causal, q/k/v
     strided bnsh views of one fused qkv projection, dO contiguous, as
-    autograd hands it over) timed three ways.  The library yardstick is
+    autograd hands it over) timed three ways, with its achieved TFLOP/s
+    and the share of its bound it reaches.  The library yardstick is
     scaled_dot_product_attention's backward (dq, dk and dv together),
-    timed as forward+backward less forward on the same views."""
+    timed as forward+backward less forward on the same views: by device
+    time (``library_ms``, from the profiler) and between CUDA events
+    (``library_event_ms``)."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops.flash_attention import (
@@ -869,17 +886,26 @@ def phase_kernel_bwd_times(dev, B, N, S, H):
         F.scaled_dot_product_attention(ql, kl, vl,
                                        is_causal=True).backward(do)
 
-    fwd_bwd = time_ms(sdpa_fwd_bwd, 20)
-    fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True), 20)
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+    fwd_bwd, fwd = time_ms(sdpa_fwd_bwd, 20), time_ms(sdpa_fwd, 20)
+    fwd_bwd_dev = device_ms(sdpa_fwd_bwd, None, 20)
+    fwd_dev = device_ms(sdpa_fwd, None, 20)
     for kind in ("dq", "dkv"):
         bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True, kind)
-        out[kind].update(library_ms=fwd_bwd - fwd, bound_ms=bound,
-                         bound_by=bound_by)
+        flop = FLASH_WORK[kind][2] * 2 * H * S * (S + 1) // 2 * B * N
+        ms = out[kind]["ms"]
+        out[kind].update(library_ms=fwd_bwd_dev - fwd_dev,
+                         library_event_ms=fwd_bwd - fwd, bound_ms=bound,
+                         bound_by=bound_by,
+                         tflops=flop / 1e12 / (ms / 1e3),
+                         bound_share=bound / ms)
     emit("kernel_bwd_times", shape=[B, N, S, H], dtype="bfloat16",
          causal=True, library="scaled_dot_product_attention backward "
-         "(dq+dk+dv) = fwd+bwd - fwd", library_fwd_bwd_ms=fwd_bwd,
-         library_fwd_ms=fwd, **out)
+         "(dq+dk+dv) = fwd+bwd - fwd", library_fwd_bwd_ms=fwd_bwd_dev,
+         library_fwd_ms=fwd_dev, library_fwd_bwd_event_ms=fwd_bwd,
+         library_fwd_event_ms=fwd, **out)
     return out
 
 
@@ -914,8 +940,8 @@ SPLASH_MAIN = SPLASH_CASES[0]
 # first design).
 SPLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "wgmma+tma",
                       "dkv": "wgmma+tma"}
-FLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "mma.sync",
-                     "dkv": "mma.sync"}
+FLASH_BF16_DESIGN = {"fwd": "wgmma+tma", "dq": "wgmma+tma",
+                     "dkv": "wgmma+tma"}
 
 
 def splash_case_inputs(gen, dev, shape, dtype, n):

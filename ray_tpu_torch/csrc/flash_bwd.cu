@@ -8,9 +8,10 @@
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - D) * scale;
 //   dQ = dS K;    dK = dS^T Q
 // with products in the input dtype (P rounded to the dO dtype before
-// P^T dO, dS to the k/q dtype before its products) and f32 accumulation.
-// Two kernels, as in the reference, and no atomics: every output row is
-// written by exactly one block, so the results are deterministic.
+// P^T dO, dS to the k/q dtype before its products) and f32 accumulation,
+// for any sign of scale.  Two kernels, as in the reference, and no atomics:
+// every output row is written by exactly one block, so the results are
+// deterministic.
 //
 // What bounds it.  At the GPT-2-small training call (bf16, causal,
 // [32,12,1024,64]) dq must move 5 [B,N,S,H] tensors plus lse and D (254.8 MB,
@@ -19,9 +20,44 @@
 // does 4 products (103.2 GFLOP, 104.3 us).  Both sit on the line between
 // memory and tensor cores: the design keeps the [S, S] scores, P and dS in
 // registers, reads each streamed tile once per block from L2, and feeds
-// the products to the tensor cores.
+// the products to the tensor cores.  At H=64 each score gets few flops, so
+// the ALU work per score (the exponent, the mask, dS) bounds the tile.
 //
-// Design (a first, simple kernel; wgmma, TMA and pipelining come later):
+// Two kernels of each; the dtype and head dim pick one, and nothing falls
+// back from one to the other.
+//
+// bf16 at head dims 64 and 128, `flash_bwd_dq_kernel` and
+// `flash_bwd_dkv_kernel`: the splash backward's design
+// (csrc/splash_attention.cu) with the flash kernels' own function; the
+// tile steps `dq_tile` and `dkv_tile` are shared with splash through
+// csrc/hopper.cuh.  One block of three warpgroups: one producer thread
+// issues 4-d TMA loads (maps over [B, N, S, H] with the caller's strides,
+// so bnsh, bsnh and strided views of a fused qkv projection are read in
+// place; rows past S arrive as zeros) into a 2-stage ring with full/empty
+// mbarriers and gives its registers up (setmaxnreg 24), and two consumer
+// warpgroups (setmaxnreg 240) run every product on wgmma from shared
+// memory, with P and dS as register A operands and the operand a product
+// reduces over rows of read through the transpose flag.
+//   * dq, query frame: one block per (batch*head, 128-row query tile),
+//     heaviest causal tiles first; Q and dO resident, 64-key K/V tiles
+//     streamed up to the causal bound of the block's last row.  Each
+//     consumer warpgroup owns 64 rows, skips the key tile past its own
+//     diagonal and masks only the tile that crosses it and a ragged last
+//     key tile;
+//   * dk/dv, key frame: one block per (batch*head, 128-key tile), low key
+//     tiles first; K and V resident, 64-row Q/dO tiles streamed from the
+//     first that reaches the block's keys, each with its 64 entries of lse
+//     and D (bulk copies, so the caller passes them in rows of S rounded up
+//     to 64).  Each warpgroup owns 64 keys, skips a query tile wholly
+//     before them, and masks only the tile that crosses its diagonal and a
+//     query tile that runs past S: padded queries get p = 0 explicitly (a
+//     zero-filled query with lse 0 would otherwise give p = 1 and leak into
+//     dK/dV);
+//   * rows at or past S are not stored.
+//
+// f32 at every head dim, and bf16 at head dims 16 and 32,
+// `flash_bwd_dq_mma_kernel` and `flash_bwd_dkv_mma_kernel` (the first
+// design):
 //   * dq kernel, query frame: one block of 4 warps per (batch*head, 64-row
 //     query tile), looping over 64-key K/V tiles; each warp owns 16 query
 //     rows.  s = Q K^T and dP = dO V^T land in the mma accumulator layout,
@@ -42,21 +78,15 @@
 //   * causal: dq never visits key tiles above the diagonal, dkv starts at
 //     the first query tile that reaches its keys; heaviest tiles first;
 //   * any S: tiles past S are zero-filled on load; query rows and key
-//     columns past S get P = 0 (a zero-filled query with a zero lse would
-//     otherwise give P = exp(0) = 1 and leak into dK/dV); rows past S are
-//     not stored;
+//     columns past S get P = 0; rows past S are not stored;
 //   * every tensor is addressed through element strides for batch, head
-//     and sequence with the head dimension contiguous, so head-major (bnsh)
-//     views of a fused qkv projection and seq-major (bsnh) tensors are read
-//     in place.
+//     and sequence with the head dimension contiguous.
 //
 // Plain C entry points (no PyTorch headers): rt_flash_bwd_dq and
 // rt_flash_bwd_dkv return the cudaError_t of the launch; the Python wrapper
 // raises when it is nonzero.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -64,13 +94,13 @@ constexpr int kTile = 64;    // rows a block owns (query rows or key rows)
 constexpr int kDqKeys = 64;  // dq: keys per streamed K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kLog2e = 1.4426950408889634f;
 
-typedef __nv_bfloat16 bf16;
-
-struct View {  // element strides of a [B, N, S, H] view, H contiguous
-  long long b, n, s;
-};
+// Row stride of the f32 [B*N, *] lse and D both kernels read: S rounded up
+// to a 64-query tile, so the bf16 dk/dv kernel's bulk copies of 64 entries
+// stay inside a row and 16-byte aligned.
+__host__ __device__ __forceinline__ int stats_stride(int S) {
+  return (S + 63) / 64 * 64;
+}
 
 // dkv: queries per streamed Q/dO tile.
 template <int HD>
@@ -123,11 +153,6 @@ __device__ __forceinline__ void load_transposed(bf16* dst, const bf16* src,
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D += A.B for one m16n8k16 tile: A 16x16 bf16 row-major fragment (4 regs),
@@ -266,7 +291,7 @@ __device__ __forceinline__ void store_rows(T* base, long long ss, int row0,
   }
 }
 
-// ------------------------------------------------------------------ dq
+// ======================================================== mma.sync: dq
 
 template <typename T, int HD>
 struct DqSmem {
@@ -282,12 +307,14 @@ struct DqSmem {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int N, int S, View qv, View kv, View vv, View dov,
-                        View dqv, int causal, float scale) {
+    flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int N, int S, View qv,
+                            View kv, View vv, View dov, View dqv, int causal,
+                            float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kP = DqSmem<T, HD>::kP;
@@ -315,8 +342,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int wr = warp * 16;
   const int row0 = q0 + wr + g, row1 = row0 + 8;  // the lane's query rows
-  const float* lse_b = lse + (long long)bn * S;
-  const float* del_b = delta + (long long)bn * S;
+  const float* lse_b = lse + (long long)bn * stats_stride(S);
+  const float* del_b = delta + (long long)bn * stats_stride(S);
   const float l0 = row0 < S ? lse_b[row0] * kLog2e : 0.f;
   const float l1 = row1 < S ? lse_b[row1] * kLog2e : 0.f;
   const float d0 = row0 < S ? del_b[row0] : 0.f;
@@ -369,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, HD>(dq + b * dqv.b + n * dqv.n, dqv.s, q0 + wr, S, acc);
 }
 
-// ------------------------------------------------------------------ dkv
+// ======================================================= mma.sync: dkv
 
 template <typename T, int HD>
 struct DkvSmem {
@@ -387,13 +414,15 @@ struct DkvSmem {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int N, int S, View qv, View kv,
-                         View vv, View dov, View dkv_, View dvv, int causal,
-                         float scale) {
+    flash_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int N,
+                             int S, View qv, View kv, View vv, View dov,
+                             View dkv_, View dvv, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kP = DkvSmem<T, HD>::kP;
@@ -418,8 +447,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kTile;  // low key tiles see the most queries
   const T* qb = q + b * qv.b + n * qv.n;
   const T* dob = dout + b * dov.b + n * dov.n;
-  const float* lse_b = lse + (long long)bn * S;
-  const float* del_b = delta + (long long)bn * S;
+  const float* lse_b = lse + (long long)bn * stats_stride(S);
+  const float* del_b = delta + (long long)bn * stats_stride(S);
 
   load_rows<T, HD, kTile>(ks, kP, k + b * kv.b + n * kv.n, kv.s, k0, S);
   load_rows<T, HD, kTile>(vs, kP, v + b * vv.b + n * vv.n, vv.s, k0, S);
@@ -501,6 +530,188 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, HD>(dv + b * dvv.b + n * dvv.n, dvv.s, k0 + wr, S, acc_v);
 }
 
+// ========================================================= wgmma: dq
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int N, int S, View dqv,
+                        int causal, float scale) {
+  using L = DqLayout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qdo_full = base + L::kBars;
+  auto full = [=](int s) { return qdo_full + 8 * (1 + s); };
+  auto empty = [=](int s) { return qdo_full + 8 * (1 + kStages + s); };
+
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest tiles first
+  // key tiles up to the last key the block's last row sees
+  const int n_kt = (causal ? min(q0 + 127, S - 1) : S - 1) / 64 + 1;
+
+  init_ring_barriers(qdo_full);
+
+  if (threadIdx.x < kWg) {
+    // Producer: Q and dO once, then K and V of every key tile.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qdo_full, 2 * L::kQTile);
+      for (int h = 0; h < HD / 64; ++h) {
+        tma_load(base + h * L::kQBox, &tq, qdo_full, h * 64, q0, n, b);
+        tma_load(base + L::kQTile + h * L::kQBox, &tdo, qdo_full, h * 64, q0,
+                 n, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int stage = kt % kStages;
+        mbar_wait(empty(stage), ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(stage), 2 * L::kKTile);
+        for (int h = 0; h < HD / 64; ++h) {
+          tma_load(L::k_tile(base, stage) + h * L::kKBox, &tk, full(stage),
+                   h * 64, kt * 64, n, b);
+          tma_load(L::v_tile(base, stage) + h * L::kKBox, &tv, full(stage),
+                   h * 64, kt * 64, n, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns query rows [r0, r0 + 64) of the tile.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / kWg - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int r0 = q0 + 64 * c;
+    const int row0 = r0 + 16 * w + lane / 4, row1 = row0 + 8;
+    const uint32_t q_rows = base + 64 * c * kRowBytes;
+    const uint32_t do_rows = q_rows + L::kQTile;
+    const long long st = (long long)bn * stats_stride(S);
+    const float l0 = row0 < S ? lse[st + row0] * kLog2e : 0.f;
+    const float l1 = row1 < S ? lse[st + row1] * kLog2e : 0.f;
+    const float d0 = row0 < S ? delta[st + row0] : 0.f;
+    const float d1 = row1 < S ? delta[st + row1] : 0.f;
+    // the last key each of the thread's rows sees
+    const int last0 = causal ? min(row0, S - 1) : S - 1;
+    const int last1 = causal ? min(row1, S - 1) : S - 1;
+    const float scale_log2 = scale * kLog2e;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(qdo_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int stage = kt % kStages, k0 = kt * 64;
+      mbar_wait(full(stage), (kt / kStages) & 1);
+      // causal: a key tile past the warpgroup's last row is all masked for
+      // it; the tile on its diagonal and a ragged last tile are masked
+      if (!causal || k0 <= r0 + 63)
+        dq_tile<HD>(acc, q_rows, do_rows, L::k_tile(base, stage),
+                    L::v_tile(base, stage), scale_log2, scale, l0, l1, d0,
+                    d1, (causal && k0 + 63 > r0) || k0 + 64 > S, last0 - k0,
+                    last1 - k0);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
+    }
+    store_bf16<HD>(dq + b * dqv.b + n * dqv.n, dqv.s, row0, S, acc);
+  }
+}
+
+// ====================================================== wgmma: dk, dv
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
+                         int S, View dkv_, View dvv, int causal, float scale) {
+  using L = DkvLayout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  const uint32_t kv_full = base + L::kBars;
+  auto full = [=](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [=](int s) { return kv_full + 8 * (1 + kStages + s); };
+
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int k0 = blockIdx.x * 128;  // low key tiles see the most queries
+  // causal: query tiles wholly before this key tile see none of its keys
+  const int qt0 = causal ? k0 / 64 : 0, n_qt = (S + 63) / 64;
+
+  init_ring_barriers(kv_full);
+
+  if (threadIdx.x < kWg) {
+    // Producer: K and V once, then Q, dO, lse and D of every query tile.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kKTile);
+      for (int h = 0; h < HD / 64; ++h) {
+        tma_load(base + h * L::kKBox, &tk, kv_full, h * 64, k0, n, b);
+        tma_load(base + L::kKTile + h * L::kKBox, &tv, kv_full, h * 64, k0,
+                 n, b);
+      }
+      const long long st = (long long)bn * stats_stride(S);
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        const int i = qt - qt0, stage = i % kStages, q0 = qt * 64;
+        mbar_wait(empty(stage), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(stage), 2 * L::kQTile + 512);
+        for (int h = 0; h < HD / 64; ++h) {
+          tma_load(L::q_tile(base, stage) + h * L::kQBox, &tq, full(stage),
+                   h * 64, q0, n, b);
+          tma_load(L::do_tile(base, stage) + h * L::kQBox, &tdo, full(stage),
+                   h * 64, q0, n, b);
+        }
+        bulk_load(base + L::stats(stage), lse + st + q0, 256, full(stage));
+        bulk_load(base + L::stats(stage) + 256, delta + st + q0, 256,
+                  full(stage));
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns keys [kw, kw + 64) of the tile.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / kWg - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int kw = k0 + 64 * c;
+    const int key0 = kw + 16 * w + lane / 4, key1 = key0 + 8;
+    const uint32_t k_rows = base + 64 * c * kRowBytes;
+    const uint32_t v_rows = k_rows + L::kKTile;
+    const float scale_log2 = scale * kLog2e;
+
+    float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int i = qt - qt0, stage = i % kStages, q0 = qt * 64;
+      mbar_wait(full(stage), (i / kStages) & 1);
+      // causal: a query tile before the warpgroup's first key sees none of
+      // its keys; query q sees key c iff q >= c, and queries at or past S
+      // are padding
+      if (!causal || q0 + 63 >= kw) {
+        const float* lse_s =
+            reinterpret_cast<const float*>(sm + L::stats(stage));
+        dkv_tile<HD>(acc_k, acc_v, k_rows, v_rows, L::q_tile(base, stage),
+                     L::do_tile(base, stage), lse_s, lse_s + 64, scale_log2,
+                     scale, (causal && q0 < kw + 63) || q0 + 64 > S,
+                     causal ? key0 - q0 : 0, causal ? key1 - q0 : 0,
+                     S - 1 - q0);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
+    }
+    store_bf16<HD>(dk + b * dkv_.b + n * dkv_.n, dkv_.s, key0, S, acc_k);
+    store_bf16<HD>(dv + b * dvv.b + n * dvv.n, dvv.s, key0, S, acc_v);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 struct Args {
@@ -515,14 +726,12 @@ struct Args {
 };
 
 template <typename T, int HD>
-cudaError_t launch_dq(const Args& a) {
+cudaError_t launch_dq_mma(const Args& a) {
   const size_t smem = DqSmem<T, HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = set_smem(flash_bwd_dq_mma_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + kTile - 1) / kTile, a.B * a.N);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dq_mma_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dq), a.N, a.S, a.qv, a.kv, a.vv, a.dov,
@@ -531,14 +740,12 @@ cudaError_t launch_dq(const Args& a) {
 }
 
 template <typename T, int HD>
-cudaError_t launch_dkv(const Args& a) {
+cudaError_t launch_dkv_mma(const Args& a) {
   const size_t smem = DkvSmem<T, HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = set_smem(flash_bwd_dkv_mma_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + kTile - 1) / kTile, a.B * a.N);
-  flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dkv_mma_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.N, a.S, a.qv,
@@ -546,39 +753,91 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kDq>
-cudaError_t dispatch_head_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 16:
-      return kDq ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32:
-      return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64:
-      return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128:
-      return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// TMA maps of boxes of `rows` rows over one of the launch's bf16 tensors.
+template <int HD>
+cudaError_t map_of(CUtensorMap* m, const void* ptr, const Args& a, View v,
+                   int rows) {
+  return bf16_map(m, ptr, a.B, a.N, a.S, HD, v, rows);
 }
 
+template <int HD>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = map_of<HD>(&tq, a.q, a, a.qv, 128)) != cudaSuccess ||
+      (err = map_of<HD>(&tk, a.k, a, a.kv, 64)) != cudaSuccess ||
+      (err = map_of<HD>(&tv, a.v, a, a.vv, 64)) != cudaSuccess ||
+      (err = map_of<HD>(&tdo, a.dout, a, a.dov, 128)) != cudaSuccess)
+    return err;
+  const size_t smem = DqLayout<HD>::kBytes;
+  if ((err = set_smem(flash_bwd_dq_kernel<HD>, smem)) != cudaSuccess)
+    return err;
+  const dim3 grid((a.S + 127) / 128, a.B * a.N);
+  flash_bwd_dq_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.N, a.S,
+      a.dqv, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = map_of<HD>(&tq, a.q, a, a.qv, 64)) != cudaSuccess ||
+      (err = map_of<HD>(&tk, a.k, a, a.kv, 128)) != cudaSuccess ||
+      (err = map_of<HD>(&tv, a.v, a, a.vv, 128)) != cudaSuccess ||
+      (err = map_of<HD>(&tdo, a.dout, a, a.dov, 64)) != cudaSuccess)
+    return err;
+  const size_t smem = DkvLayout<HD>::kBytes;
+  if ((err = set_smem(flash_bwd_dkv_kernel<HD>, smem)) != cudaSuccess)
+    return err;
+  const dim3 grid((a.S + 127) / 128, a.B * a.N);
+  flash_bwd_dkv_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.N, a.S, a.dkv, a.dvv, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, bool kDq>
+cudaError_t launch_mma(const Args& a) {
+  return kDq ? launch_dq_mma<T, HD>(a) : launch_dkv_mma<T, HD>(a);
+}
+
+template <int HD, bool kDq>
+cudaError_t launch_wgmma(const Args& a) {
+  return kDq ? launch_dq_wgmma<HD>(a) : launch_dkv_wgmma<HD>(a);
+}
+
+// dtype 0 (f32) takes the mma.sync kernels at every head dim; dtype 1
+// (bf16) the wgmma kernels at head dims 64 and 128, the mma.sync kernels
+// at 16 and 32.
 template <bool kDq>
 cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.S <= 0) return cudaSuccess;
-  switch (dtype) {
-    case 0:
-      return dispatch_head_dim<float, kDq>(head_dim, a);
-    case 1:
-      return dispatch_head_dim<bf16, kDq>(head_dim, a);
-    default:
-      return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (head_dim) {
+      case 16: return launch_mma<float, 16, kDq>(a);
+      case 32: return launch_mma<float, 32, kDq>(a);
+      case 64: return launch_mma<float, 64, kDq>(a);
+      case 128: return launch_mma<float, 128, kDq>(a);
+    }
+  } else if (dtype == 1) {
+    switch (head_dim) {
+      case 16: return launch_mma<bf16, 16, kDq>(a);
+      case 32: return launch_mma<bf16, 32, kDq>(a);
+      case 64: return launch_wgmma<64, kDq>(a);
+      case 128: return launch_wgmma<128, kDq>(a);
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse and delta
-// are f32 [B*N, S], contiguous.
+// are f32 [B*N, S rounded up to 64], 16-byte aligned; the entries past S in
+// each row are read and masked, so they must be finite (the wrapper pads
+// with zeros).
 extern "C" cudaError_t rt_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int dtype, int head_dim,

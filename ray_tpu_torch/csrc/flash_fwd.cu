@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel` (ray_tpu/ops/flash_attention.py,
 // launched by `_flash_fwd_impl`).  Same function: online softmax with a
 // running max m, running sum l and an f32 output accumulator; products in
-// the input dtype with f32 accumulation; scores scaled by sm_scale (in the
-// log2 domain, scale_log2 = sm_scale * log2(e)); mask value -1e30; causal
+// the input dtype with f32 accumulation; scores scaled by sm_scale of any
+// sign (in the log2 domain, scale_log2 = sm_scale * log2(e); the wgmma
+// kernel runs its key loop compiled for the sign, see `fwd_tile` in
+// csrc/hopper.cuh); mask value -1e30 applied to the scaled scores; causal
 // masks col > row; keys at or past S are masked and rows at or past S are
 // neither stored nor written to lse; finalize o = acc / max(l, 1e-30) and
 // lse = m + log(l) as f32 [B*N, S].
@@ -124,17 +126,26 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     Softmax st{kNegInf, kNegInf, 0.f, 0.f};
 
     mbar_wait(q_full, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int stage = kt % kStages, k0 = kt * 128;
-      mbar_wait(full(stage), (kt / kStages) & 1);
-      // the causal diagonal, and keys at or past S
-      fwd_tile<HD>(acc, st, q_rows, L::k_tile(base, stage),
-                   L::v_tile(base, stage), scale_log2, kNegInf,
-                   (causal && kt == qt) || k0 + 128 > S, last0 - k0,
-                   last1 - k0);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
-    }
+    // The key loop, compiled twice: a scale at or below zero needs the
+    // scores scaled before the row max, and the sign is uniform, so the
+    // loop for a positive scale stays free of it.
+    auto key_loop = [&](auto scale_first) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int stage = kt % kStages, k0 = kt * 128;
+        mbar_wait(full(stage), (kt / kStages) & 1);
+        // the causal diagonal, and keys at or past S
+        fwd_tile<HD, decltype(scale_first)::value>(
+            acc, st, q_rows, L::k_tile(base, stage), L::v_tile(base, stage),
+            scale_log2, kNegInf, (causal && kt == qt) || k0 + 128 > S,
+            last0 - k0, last1 - k0);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
+      }
+    };
+    if (scale_log2 > 0.f)
+      key_loop(Flag<false>());
+    else
+      key_loop(Flag<true>());
     fwd_store<HD>(o + b * ov.b + n * ov.n, ov.s, lse + (long long)bn * S,
                   row0, S, acc, st);
   }

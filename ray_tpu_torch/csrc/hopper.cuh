@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
-// csrc/flash_fwd.cu and csrc/splash_attention.cu: mbarriers, TMA loads and
-// their tensor maps, wgmma with its shared-memory descriptors, setmaxnreg,
-// and the forward's tile of the online softmax that both forwards run.
+// csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/splash_attention.cu:
+// mbarriers, TMA loads and their tensor maps, wgmma with its shared-memory
+// descriptors, setmaxnreg, the forward's tile of the online softmax that
+// both forwards run, and the dq and dk/dv tiles that both backwards run.
 //
 // Each source that includes this header is its own library (one nvcc per
 // source, see ops/_build.py), so everything here has internal linkage: it
@@ -41,6 +42,13 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128*24 + 256*240
 
 struct View {  // element strides of a [B, N, S, H] view, H contiguous
   long long b, n, s;
+};
+
+// A compile-time flag passed by value, to pick a template instantiation
+// from a uniform run-time test.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -323,8 +331,10 @@ struct Softmax {
 // the mask is one compare, and a tile that needs none (a uniform branch)
 // pays nothing; s stays unscaled until the exponent (for scale_log2 > 0,
 // max(s) scaled is the max of x), so p = 2^(x - m) is one FFMA and one
-// MUFU.EX2.
-template <int HD>
+// MUFU.EX2.  For scale_log2 <= 0 (a flash call may pass any sm_scale)
+// that does not hold: the caller sets kScaleFirst, s is scaled first and
+// the rest runs on x with factor 1.
+template <int HD, bool kScaleFirst = false>
 __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
                                          uint32_t q_rows, uint32_t ks,
                                          uint32_t vs, float scale_log2,
@@ -342,7 +352,12 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
   wgmma_wait_all();
   fence_regs(s);
 
-  const float raw_mask = mask_value / scale_log2;  // x = mask_value
+  if constexpr (kScaleFirst) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+  }
+  const float f = kScaleFirst ? 1.f : scale_log2;  // x = s * f
+  const float raw_mask = kScaleFirst ? mask_value : mask_value / scale_log2;
   if (need_mask) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -366,18 +381,18 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
   }
-  const float mn0 = fmaxf(st.m0, mx0 * scale_log2);
-  const float mn1 = fmaxf(st.m1, mx1 * scale_log2);
+  const float mn0 = fmaxf(st.m0, mx0 * f);
+  const float mn1 = fmaxf(st.m1, mx1 * f);
   const float alpha0 = ex2(st.m0 - mn0), alpha1 = ex2(st.m1 - mn1);
   st.m0 = mn0;
   st.m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -mn0));
-    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -mn0));
-    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -mn1));
-    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -mn1));
+    s[4 * j] = ex2(fmaf(s[4 * j], f, -mn0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], f, -mn0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], f, -mn1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], f, -mn1));
     rs0 += s[4 * j] + s[4 * j + 1];
     rs1 += s[4 * j + 2] + s[4 * j + 3];
   }
@@ -423,6 +438,212 @@ __device__ __forceinline__ void fwd_store(bf16* o, long long ss, float* lse,
     if (r0 < S) lse[r0] = (st.m0 + log2f(st.l0)) * kLn2;
     if (r0 + 8 < S) lse[r0 + 8] = (st.m1 + log2f(st.l1)) * kLn2;
   }
+}
+
+// ------------------------------------------------------ the backward tiles
+//
+// Both backwards recompute p = 2^(s * scale_log2 - lse * log2(e)) from the
+// forward's lse and form ds = p * (dp - D) * scale, the reference's
+// `(p * (dp - delta) * sm_scale).astype(k.dtype)`, as p * fma(dp, scale,
+// -D * scale): one instruction per score beside the FFMA and MUFU.EX2 of
+// p.  No row max is taken, so every sign of scale is right.  The splash
+// kernels pass scale 1 (their q arrives pre-scaled) and scale_log2 =
+// log2(e).  Masked scores get p = 0, on tiles that need a mask only (a
+// uniform branch).
+
+// Shared memory of both bf16 dq kernels from a 1024-byte aligned base: Q
+// and dO [128][HD] (resident), then per stage K and V [64][HD], each tile
+// HD / 64 swizzled boxes; then the mbarriers qdo_full, full[kStages],
+// empty[kStages].
+template <int HD>
+struct DqLayout {
+  static constexpr uint32_t kQBox = 128 * kRowBytes;
+  static constexpr uint32_t kQTile = kQBox * (HD / 64);
+  static constexpr uint32_t kKBox = 64 * kRowBytes;
+  static constexpr uint32_t kKTile = kKBox * (HD / 64);
+  static constexpr uint32_t kRing = 2 * kQTile;
+  static constexpr uint32_t kBars = kRing + 2 * kKTile * kStages;
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static __device__ __forceinline__ uint32_t k_tile(uint32_t base, int s) {
+    return base + kRing + 2 * kKTile * s;
+  }
+  static __device__ __forceinline__ uint32_t v_tile(uint32_t base, int s) {
+    return k_tile(base, s) + kKTile;
+  }
+};
+
+// One 64-key tile of dq for a consumer warpgroup whose 64 query rows start
+// at `q_rows` in the Q tile and `do_rows` in the dO tile: s = q k^T and
+// dp = do v^T in one wgmma group (all four K-major from shared memory);
+// p from the thread's rows' l0 (row r0) and l1 (row r0 + 8), each the
+// row's lse * log2(e); ds = p * (dp - D) * scale with the rows' D d0 and
+// d1, rounded to bf16 in registers; then acc += ds k with k row-major read
+// transposed.  When `need_mask`, the keys of the tile past lim0 (row r0) or
+// lim1 (row r0 + 8), counted from the tile's first key, get p = 0.
+template <int HD>
+__device__ __forceinline__ void dq_tile(float (&acc)[HD / 2], uint32_t q_rows,
+                                        uint32_t do_rows, uint32_t ks,
+                                        uint32_t vs, float scale_log2,
+                                        float scale, float l0, float l1,
+                                        float d0, float d1, bool need_mask,
+                                        int lim0, int lim1) {
+  using L = DqLayout<HD>;
+  const int t = threadIdx.x % 4;
+  float s[32], dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(s, sw128_desc(q_rows + k_step(L::kQBox, kk), 16, 1024),
+             sw128_desc(ks + k_step(L::kKBox, kk), 16, 1024), kk);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(dp, sw128_desc(do_rows + k_step(L::kQBox, kk), 16, 1024),
+             sw128_desc(vs + k_step(L::kKBox, kk), 16, 1024), kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  fence_regs(dp);
+
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = ex2(fmaf(s[i], scale_log2, -(i % 4 < 2 ? l0 : l1)));
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i / 4) + 2 * t + (i & 1) > (i % 4 < 2 ? lim0 : lim1))
+        s[i] = 0.f;
+  }
+  const float nd0 = -d0 * scale, nd1 = -d1 * scale;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    dp[i] = s[i] * fmaf(dp[i], scale, i % 4 < 2 ? nd0 : nd1);
+
+  uint32_t da[4][4];
+  to_a_fragments<4>(da, dp);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_t(acc, da[kk],
+               sw128_desc(ks + kk * 16 * kRowBytes, L::kKBox, 1024));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// Shared memory of both bf16 dk/dv kernels from a 1024-byte aligned base:
+// K and V [128][HD] (resident), then per stage Q and dO [64][HD], each tile
+// HD / 64 swizzled boxes; then per stage lse and D of the query tile (f32
+// [64] each, `stats` bytes from the base); then the mbarriers kv_full,
+// full[kStages], empty[kStages].
+template <int HD>
+struct DkvLayout {
+  static constexpr uint32_t kKBox = 128 * kRowBytes;
+  static constexpr uint32_t kKTile = kKBox * (HD / 64);
+  static constexpr uint32_t kQBox = 64 * kRowBytes;
+  static constexpr uint32_t kQTile = kQBox * (HD / 64);
+  static constexpr uint32_t kRing = 2 * kKTile;
+  static constexpr uint32_t kStats = kRing + 2 * kQTile * kStages;
+  static constexpr uint32_t kBars = kStats + 512 * kStages;
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static __device__ __forceinline__ uint32_t q_tile(uint32_t base, int s) {
+    return base + kRing + 2 * kQTile * s;
+  }
+  static __device__ __forceinline__ uint32_t do_tile(uint32_t base, int s) {
+    return q_tile(base, s) + kQTile;
+  }
+  static __device__ __forceinline__ uint32_t stats(int s) {
+    return kStats + 512 * s;
+  }
+};
+
+// One 64-query tile of dk and dv for a consumer warpgroup whose 64 keys
+// start at `k_rows` in the K tile and `v_rows` in the V tile, with the
+// query tile's Q at `qs`, dO at `dos` and its lse and D in shared memory:
+// s^T = k q^T, p^T, then dv += p^T do and dp^T = v do^T in one wgmma group,
+// ds^T = p^T * (dp^T - D) * scale, then dk += ds^T q (do and q row-major
+// read transposed; p^T and ds^T rounded to bf16 in registers).  When
+// `need_mask`, the queries of the tile before lo0 (the thread's key row
+// r0) or lo1 (row r0 + 8), or past hi (every row), counted from the tile's
+// first query, get p = 0.
+template <int HD>
+__device__ __forceinline__ void dkv_tile(float (&acc_k)[HD / 2],
+                                         float (&acc_v)[HD / 2],
+                                         uint32_t k_rows, uint32_t v_rows,
+                                         uint32_t qs, uint32_t dos,
+                                         const float* lse_s,
+                                         const float* di_s, float scale_log2,
+                                         float scale, bool need_mask,
+                                         int lo0, int lo1, int hi) {
+  using L = DkvLayout<HD>;
+  const int t = threadIdx.x % 4;
+  float s[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(s, sw128_desc(k_rows + k_step(L::kKBox, kk), 16, 1024),
+             sw128_desc(qs + k_step(L::kQBox, kk), 16, 1024), kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = 8 * j + 2 * t + (e & 1);
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -lse_s[qc] * kLog2e));
+    }
+  }
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        if (qc < (e < 2 ? lo0 : lo1) || qc > hi) s[4 * j + e] = 0.f;
+      }
+    }
+  }
+
+  uint32_t pa[4][4];
+  to_a_fragments<4>(pa, s);
+  float dp[32];
+  fence_regs(acc_v);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_t(acc_v, pa[kk],
+               sw128_desc(dos + kk * 16 * kRowBytes, L::kQBox, 1024));
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(dp, sw128_desc(v_rows + k_step(L::kKBox, kk), 16, 1024),
+             sw128_desc(dos + k_step(L::kQBox, kk), 16, 1024), kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc_v);
+  fence_regs(dp);
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = 8 * j + 2 * t + (e & 1);
+      dp[4 * j + e] =
+          s[4 * j + e] * fmaf(dp[4 * j + e], scale, -di_s[qc] * scale);
+    }
+  }
+  uint32_t da[4][4];
+  to_a_fragments<4>(da, dp);
+  fence_regs(acc_k);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_t(acc_k, da[kk],
+               sw128_desc(qs + kk * 16 * kRowBytes, L::kQBox, 1024));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc_k);
 }
 
 // -------------------------------------------------------------- host side

@@ -65,14 +65,16 @@
 //     P = exp2(S log2e - lse log2e) (0 where a partial tile masks it),
 //     dS = P (dP - di), dQ += dS K with K read as the MN-major B operand
 //     (no transposed copy of K).  Registers at H=128: dQ 64 + S 32 + dP 32
-//     f32 and the packed dS 16;
+//     f32 and the packed dS 16.  The tile step is shared with the flash
+//     dq, `dq_tile`;
 //   * dk/dv `splash_dkv_kernel` (replaces `_flash_attention_dkv_kernel`;
 //     FlashAttention-3's backward in the key frame, without dq): one block
 //     per (batch*head, 128-key tile), lowest key tiles first; K and V
 //     resident; 64-row Q and dO tiles with their lse and di streamed along
 //     the transposed map.  Per tile: S^T = K Q^T, P^T = exp2(S^T log2e -
 //     lse) (masked on partial tiles), dV += P^T dO, dP^T = V dO^T, dS^T =
-//     P^T (dP^T - di), dK += dS^T Q.
+//     P^T (dP^T - di), dK += dS^T Q (the tile step is shared with the
+//     flash dk/dv, `dkv_tile`).
 // All read q, k, v, do through 4-d TMA maps over [B, N, S, H] with the
 // caller's strides and 128-byte swizzle (a tile of H=128 is two 64-column
 // boxes), matched by the wgmma descriptors; the maps are encoded on the
@@ -692,21 +694,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 // -------------------------------------------------------------- bf16 dq
 
-// Shared memory of the bf16 dq kernel from a 1024-byte aligned base: Q
-// and dO [128][HD] (resident), then per stage K and V [64][HD], each tile
-// HD / 64 swizzled boxes; then the mbarriers qdo_full, full[kStages],
-// empty[kStages].
-template <int HD>
-struct DqLayout {
-  static constexpr uint32_t kQBox = 128 * kRowBytes;
-  static constexpr uint32_t kQTile = kQBox * (HD / 64);
-  static constexpr uint32_t kKBox = kKeys * kRowBytes;
-  static constexpr uint32_t kKTile = kKBox * (HD / 64);
-  static constexpr uint32_t kRing = 2 * kQTile;
-  static constexpr uint32_t kBars = kRing + 2 * kKTile * kStages;
-  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
-};
-
 template <int HD>
 __global__ void __launch_bounds__(kWsThreads, 1)
     splash_dq_kernel(const __grid_constant__ CUtensorMap tq,
@@ -720,8 +707,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qdo_full = base + L::kBars;
-  auto k_tile = [=](int s) { return base + L::kRing + 2 * L::kKTile * s; };
-  auto v_tile = [=](int s) { return k_tile(s) + L::kKTile; };
   auto full = [=](int s) { return qdo_full + 8 * (1 + s); };
   auto empty = [=](int s) { return qdo_full + 8 * (1 + kStages + s); };
 
@@ -755,10 +740,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           mbar_wait(empty(stage), phase ^ 1);
           mbar_expect_tx(full(stage), 2 * L::kKTile);
           for (int h = 0; h < HD / 64; ++h) {
-            tma_load(k_tile(stage) + h * L::kKBox, &tk, full(stage), h * 64,
-                     k0, n, b);
-            tma_load(v_tile(stage) + h * L::kKBox, &tv, full(stage), h * 64,
-                     k0, n, b);
+            tma_load(L::k_tile(base, stage) + h * L::kKBox, &tk, full(stage),
+                     h * 64, k0, n, b);
+            tma_load(L::v_tile(base, stage) + h * L::kKBox, &tv, full(stage),
+                     h * 64, k0, n, b);
           }
           if (++stage == kStages) {
             stage = 0;
@@ -772,7 +757,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     setmaxnreg_inc<kConsumerRegs>();
     const int c = threadIdx.x / kWg - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int t = lane % 4;
     const int row0 = q0 + 64 * c + 16 * w + lane / 4;
     const uint32_t q_rows = base + 64 * c * kRowBytes;
     const uint32_t do_rows = q_rows + L::kQTile;
@@ -796,54 +780,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
             (entry & 1) ? 2 : tile_kind(q0, 128, k0, kKeys, off);
         if (kind == 0) continue;
         mbar_wait(full(stage), phase);
-        const uint32_t ks = k_tile(stage), vs = v_tile(stage);
-
-        // s = q k^T and dp = do v^T
-        float s[32], dp[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss(s, sw128_desc(q_rows + k_step(L::kQBox, kk), 16, 1024),
-                   sw128_desc(ks + k_step(L::kKBox, kk), 16, 1024), kk);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss(dp, sw128_desc(do_rows + k_step(L::kQBox, kk), 16, 1024),
-                   sw128_desc(vs + k_step(L::kKBox, kk), 16, 1024), kk);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(s);
-        fence_regs(dp);
-
-        // p = exp(s - lse), 0 where masked (row r sees key c iff r + off
-        // >= c; a uniform branch, so full tiles pay nothing); ds = (dp -
-        // di) * p
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          s[i] = ex2(fmaf(s[i], kLog2e, -(i % 4 < 2 ? l0 : l1)));
-        if (kind == 1) {
-          const int lim0 = row0 + off - k0, lim1 = lim0 + 8;
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            if (8 * (i / 4) + 2 * t + (i & 1) > (i % 4 < 2 ? lim0 : lim1))
-              s[i] = 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          dp[i] = (dp[i] - (i % 4 < 2 ? d0 : d1)) * s[i];
-
-        // dq += ds k (k read transposed)
-        uint32_t da[4][4];
-        to_a_fragments<4>(da, dp);
-        fence_regs(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_t(acc, da[kk],
-                     sw128_desc(ks + kk * 16 * kRowBytes, L::kKBox, 1024));
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(acc);
-
+        // row r sees key c iff r + off >= c
+        dq_tile<HD>(acc, q_rows, do_rows, L::k_tile(base, stage),
+                    L::v_tile(base, stage), kLog2e, 1.f, l0, l1, d0, d1,
+                    kind == 1, row0 + off - k0, row0 + 8 + off - k0);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
         if (++stage == kStages) {
@@ -857,22 +797,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ----------------------------------------------------------- bf16 dk, dv
-
-// Shared memory of the bf16 dk/dv kernel from a 1024-byte aligned base: K
-// and V [128][HD] (resident), then per stage Q and dO [64][HD], each tile
-// HD / 64 swizzled boxes; then per stage lse and di of the query tile (f32
-// [64] each); then the mbarriers kv_full, full[kStages], empty[kStages].
-template <int HD>
-struct DkvLayout {
-  static constexpr uint32_t kKBox = 128 * kRowBytes;
-  static constexpr uint32_t kKTile = kKBox * (HD / 64);
-  static constexpr uint32_t kQBox = 64 * kRowBytes;
-  static constexpr uint32_t kQTile = kQBox * (HD / 64);
-  static constexpr uint32_t kRing = 2 * kKTile;
-  static constexpr uint32_t kStats = kRing + 2 * kQTile * kStages;
-  static constexpr uint32_t kBars = kStats + 512 * kStages;
-  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
-};
 
 template <int HD>
 __global__ void __launch_bounds__(kWsThreads, 1)
@@ -890,9 +814,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_addr(sm);
   const uint32_t kv_full = base + L::kBars;
-  auto q_tile = [=](int s) { return base + L::kRing + 2 * L::kQTile * s; };
-  auto do_tile = [=](int s) { return q_tile(s) + L::kQTile; };
-  auto stats = [=](int s) { return L::kStats + 512 * s; };  // from base
   auto full = [=](int s) { return kv_full + 8 * (1 + s); };
   auto empty = [=](int s) { return kv_full + 8 * (1 + kStages + s); };
 
@@ -927,13 +848,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           mbar_wait(empty(stage), phase ^ 1);
           mbar_expect_tx(full(stage), 2 * L::kQTile + 512);
           for (int h = 0; h < HD / 64; ++h) {
-            tma_load(q_tile(stage) + h * L::kQBox, &tq, full(stage), h * 64,
-                     q0, n, b);
-            tma_load(do_tile(stage) + h * L::kQBox, &tdo, full(stage),
+            tma_load(L::q_tile(base, stage) + h * L::kQBox, &tq, full(stage),
                      h * 64, q0, n, b);
+            tma_load(L::do_tile(base, stage) + h * L::kQBox, &tdo,
+                     full(stage), h * 64, q0, n, b);
           }
-          bulk_load(base + stats(stage), lse_b + q0, 256, full(stage));
-          bulk_load(base + stats(stage) + 256, di_b + q0, 256, full(stage));
+          bulk_load(base + L::stats(stage), lse_b + q0, 256, full(stage));
+          bulk_load(base + L::stats(stage) + 256, di_b + q0, 256,
+                    full(stage));
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -946,8 +868,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     setmaxnreg_inc<kConsumerRegs>();
     const int c = threadIdx.x / kWg - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int t = lane % 4;
-    const int key0 = k0 + 64 * c + 16 * w + lane / 4, key1 = key0 + 8;
+    const int key0 = k0 + 64 * c + 16 * w + lane / 4;
     const uint32_t k_rows = base + 64 * c * kRowBytes;
     const uint32_t v_rows = k_rows + L::kKTile;
 
@@ -967,73 +888,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int kind = (entry & 1) ? 2 : tile_kind(q0, 64, k0, 128, off);
         if (kind == 0) continue;
         mbar_wait(full(stage), phase);
-        const uint32_t qs = q_tile(stage), dos = do_tile(stage);
-        const float* lse_s = reinterpret_cast<const float*>(sm + stats(stage));
-        const float* di_s = lse_s + 64;
-
-        // s^T = k q^T
-        float s[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss(s, sw128_desc(k_rows + k_step(L::kKBox, kk), 16, 1024),
-                   sw128_desc(qs + k_step(L::kQBox, kk), 16, 1024), kk);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(s);
-
-        // p^T = exp(s^T - lse[query]), 0 where masked
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = 8 * j + 2 * t + (e & 1);
-            float p = ex2(fmaf(s[4 * j + e], kLog2e, -lse_s[qc] * kLog2e));
-            if (kind == 1 && q0 + qc + off < (e < 2 ? key0 : key1)) p = 0.f;
-            s[4 * j + e] = p;
-          }
-        }
-
-        // dv += p^T do (do read transposed); dp^T = v do^T
-        uint32_t pa[4][4];
-        to_a_fragments<4>(pa, s);
-        float dp[32];
-        fence_regs(acc_v);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_t(acc_v, pa[kk],
-                     sw128_desc(dos + kk * 16 * kRowBytes, L::kQBox, 1024));
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss(dp, sw128_desc(v_rows + k_step(L::kKBox, kk), 16, 1024),
-                   sw128_desc(dos + k_step(L::kQBox, kk), 16, 1024), kk);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(acc_v);
-        fence_regs(dp);
-
-        // ds^T = (dp^T - di[query]) * p^T; dk += ds^T q (q read transposed)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = 8 * j + 2 * t + (e & 1);
-            dp[4 * j + e] = (dp[4 * j + e] - di_s[qc]) * s[4 * j + e];
-          }
-        }
-        uint32_t da[4][4];
-        to_a_fragments<4>(da, dp);
-        fence_regs(acc_k);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_t(acc_k, da[kk],
-                     sw128_desc(qs + kk * 16 * kRowBytes, L::kQBox, 1024));
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(acc_k);
-
+        const float* lse_s =
+            reinterpret_cast<const float*>(sm + L::stats(stage));
+        // query q sees key c iff q + off >= c
+        dkv_tile<HD>(acc_k, acc_v, k_rows, v_rows, L::q_tile(base, stage),
+                     L::do_tile(base, stage), lse_s, lse_s + 64, kLog2e, 1.f,
+                     kind == 1, key0 - off - q0, key0 + 8 - off - q0, 63);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
         if (++stage == kStages) {

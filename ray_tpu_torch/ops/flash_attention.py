@@ -2,11 +2,11 @@
 
 Port of ``ray_tpu/ops/flash_attention.py``.  On CUDA tensors the forward
 launches a hand-written Hopper kernel of ``csrc/flash_fwd.cu`` (which
-replaces the Pallas TPU kernel ``_fwd_kernel``: in bf16 at head dims 64 and
-128 the warp-specialised wgmma kernel fed by TMA, which reads q, k and v
-through TMA maps; otherwise the first, mma.sync design) and the backward
-the two kernels of ``csrc/flash_bwd.cu`` (``_dq_kernel`` and
-``_dkv_kernel``); on CPU tensors each runs its plain PyTorch version
+replaces the Pallas TPU kernel ``_fwd_kernel``) and the backward the two
+kernels of ``csrc/flash_bwd.cu`` (``_dq_kernel`` and ``_dkv_kernel``): in
+bf16 at head dims 64 and 128 the warp-specialised wgmma kernels fed by TMA,
+which read q, k, v and dO through TMA maps; otherwise the first, mma.sync
+design.  On CPU tensors each runs its plain PyTorch version
 (``flash_attention_reference``;
 ``flash_attention_dq_reference`` and ``flash_attention_dkv_reference``,
 together ``flash_attention_bwd_reference``), which follows the same
@@ -326,10 +326,6 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: Optional[float],
     qb, kb, vb = (_bnsh(x, layout) for x in (q, k, v))
     B, N, S, H = qb.shape
     scale = _scale(sm_scale, H)
-    if not scale > 0:
-        # the wgmma kernel takes the row max of the unscaled scores
-        raise ValueError(f"the forward kernels take sm_scale > 0, not "
-                         f"{scale}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ob = _bnsh(o, layout)
     lse = torch.empty((B * N, S), dtype=torch.float32, device=q.device)
@@ -357,10 +353,26 @@ def _bwd_launch_args(q, k, v, do, lse, delta, layout: str):
     return ptrs, (_DTYPE_CODES[q.dtype], H, B, N, S), strides
 
 
+def _stats_rows(x: torch.Tensor) -> torch.Tensor:
+    """An f32 [B*N, S] statistic (lse or D) as the backward kernels read
+    it: rows of S rounded up to 64 entries, zero past S, contiguous and
+    16-byte aligned (the bf16 dk/dv kernel copies 64 entries at a time).
+    A copy only where ``x`` is not such a tensor already: S % 64 != 0, or a
+    strided or misaligned view."""
+    rows, S = x.shape
+    width = -(-S // 64) * 64
+    if width == S and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.zeros((rows, width), dtype=torch.float32, device=x.device)
+    out[:, :S] = x
+    return out
+
+
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                layout: str) -> torch.Tensor:
     """dq by ``rt_flash_bwd_dq`` (inputs checked by the caller; lse and
-    delta f32 [B*N, S], contiguous)."""
+    delta f32 [B*N, S], or already in the rows of ``_stats_rows``)."""
+    lse, delta = _stats_rows(lse), _stats_rows(delta)
     ptrs, shape, strides = _bwd_launch_args(q, k, v, do, lse, delta, layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dqb = _bnsh(dq, layout)
@@ -377,6 +389,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                 layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk and dv by ``rt_flash_bwd_dkv`` (as ``_launch_dq``)."""
+    lse, delta = _stats_rows(lse), _stats_rows(delta)
     ptrs, shape, strides = _bwd_launch_args(q, k, v, do, lse, delta, layout)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
@@ -396,7 +409,6 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool,
                 sm_scale: Optional[float], layout: str):
     _check_kernel_inputs(q, k, v, o=o, do=do)
     delta = _delta(o, do, layout)
-    lse = lse.contiguous()
     scale = _scale(sm_scale, q.shape[-1])
     dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, layout)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, layout)

@@ -24,7 +24,7 @@ def csrc(tmp_path, monkeypatch):
 def test_the_shared_header_exists_and_the_wgmma_sources_include_it():
     csrc = pathlib.Path(_build.CSRC_DIR)
     assert (csrc / "hopper.cuh").is_file()
-    for source in ("flash_fwd.cu", "splash_attention.cu"):
+    for source in SOURCES:
         assert '#include "hopper.cuh"' in (csrc / source).read_text()
 
 

@@ -68,6 +68,54 @@ def test_plain_backward_matches_jax_kernels(dtype, layout, causal, blocks):
                                    atol=TOL[dtype], rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sm_scale", [0.0, -0.125, 0.3])
+def test_plain_forward_and_backward_take_any_scale(dtype, causal, sm_scale):
+    """A scale at or below zero (every score equal, or the order of the
+    scores reversed) and a non-default positive one: the plain forward and
+    backward against ``_flash_fwd_impl``/``_flash_bwd_impl`` in interpret
+    mode, which scale by any ``sm_scale``."""
+    shape, bq, bk = (2, 64, 2, 16), 32, 16
+    q, k, v, g = (jnp.asarray(x, JNP[dtype]) for x in _inputs(shape, 4, 11))
+    o, lse = _flash_fwd_impl(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                             sm_scale=sm_scale, interpret=True, layout="bsnh")
+    want = _flash_bwd_impl(q, k, v, o, lse, g, causal=causal, block_q=bq,
+                           block_k=bk, sm_scale=sm_scale, interpret=True,
+                           layout="bsnh")
+    t = [torch.from_numpy(_np(x)).to(TORCH[dtype]) for x in (q, k, v, o, g)]
+    got_o, got_lse = fa.flash_attention_reference(t[0], t[1], t[2], causal,
+                                                  bq, bk, sm_scale, "bsnh")
+    np.testing.assert_allclose(got_o.float().numpy(), _np(o),
+                               atol=TOL[dtype], rtol=0, err_msg="o")
+    np.testing.assert_allclose(got_lse.numpy(), _np(lse), atol=TOL[dtype],
+                               rtol=0, err_msg="lse")
+    got = fa.flash_attention_bwd_reference(
+        t[0], t[1], t[2], t[3], torch.from_numpy(_np(lse)), t[4], causal, bq,
+        bk, sm_scale, "bsnh")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.float().numpy(), _np(b),
+                                   atol=TOL[dtype], rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("S", [64, 200, 1024])
+def test_stats_rows_as_the_kernels_read_them(S):
+    """lse and D reach the backward kernels in rows of S rounded up to 64,
+    zero past S (the dk/dv kernel copies 64 entries at a time and masks
+    the padding); a tensor already so is passed on without a copy."""
+    x = torch.randn(6, S)
+    rows = fa._stats_rows(x)
+    width = -(-S // 64) * 64
+    assert rows.shape == (6, width) and rows.dtype == torch.float32
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+    torch.testing.assert_close(rows[:, :S], x, rtol=0, atol=0)
+    assert not rows[:, S:].any()
+    assert (rows.data_ptr() == x.data_ptr()) == (width == S)
+    assert fa._stats_rows(rows).data_ptr() == rows.data_ptr()
+    view = torch.randn(6, 2 * width)[:, ::2]       # strided: copied
+    assert fa._stats_rows(view).is_contiguous()
+
+
 def _port_grads(q, k, v, causal, bq, bk, layout="bsnh"):
     ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     fa.flash_attention(*ts, causal, bq, bk, None, layout).sum().backward()

@@ -44,17 +44,19 @@ def _inputs(shape, device, dtype, seed=0):
             .to(device, dtype) for _ in range(3)]
 
 
-def _check_against_plain(q, k, v, causal, layout, dtype):
+def _check_against_plain(q, k, v, causal, layout, dtype, sm_scale=None):
     B, N, S = (q.shape[0], q.shape[1], q.shape[2]) if layout == "bnsh" \
         else (q.shape[0], q.shape[2], q.shape[1])
     before = fa.flash_attention.launches
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, layout=layout)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sm_scale=sm_scale,
+                                    layout=layout)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert o.shape == q.shape and o.dtype == q.dtype
     assert lse.shape == (B * N, S)
     ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(),
-                                          causal, layout=layout)
+                                          causal, sm_scale=sm_scale,
+                                          layout=layout)
     atol_o, atol_lse = ATOL[dtype]
     torch.testing.assert_close(o.float(), ro, atol=atol_o, rtol=atol_o)
     torch.testing.assert_close(lse, rl, atol=atol_lse, rtol=0)
@@ -138,13 +140,23 @@ def test_dtype_and_head_dim_pick_the_kernel(cuda, dtype, H, kernel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype, H", [("bfloat16", 64), ("bfloat16", 128),
+                                      ("float32", 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sm_scale", [0.0, -0.125])
+def test_kernel_takes_any_scale(cuda, dtype, H, causal, sm_scale):
+    """sm_scale at or below zero, which the reference takes: the wgmma
+    kernel (bf16) scales before the row max on that path, the mma.sync
+    kernel (f32) always does.  S = 200 cuts a tile."""
+    q, k, v = _inputs((2, 3, 200, H), cuda, TORCH[dtype], seed=H + 1)
+    _check_against_plain(q, k, v, causal, "bnsh", dtype, sm_scale)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 2, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)
-    q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="sm_scale > 0"):
-        fa.flash_attention(q, q, q, sm_scale=0.0)
 
 
 @pytest.mark.gpu
