@@ -3,22 +3,37 @@
 The port keeps the reference's names and stacked ``[L]`` layout, so a
 nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)`` on the JAX side) maps leaf for leaf onto the port's params, and
-``params_to_numpy`` gives the same tree back.
+``params_to_numpy`` gives the same tree back.  The shapes come from the
+config's family: a ``GPTConfig``, a ``LlamaConfig``, or the layer sizes of
+an MLP.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import DeviceLike, resolve_device
-from ray_tpu_torch.models.gpt import GPTConfig, Params, param_shapes
+from ray_tpu_torch.models import gpt, llama
+from ray_tpu_torch.models.mlp import mlp_param_shapes
+
+ModelConfig = Union[gpt.GPTConfig, llama.LlamaConfig, Sequence[int]]
 
 
-def params_from_jax(np_tree: Mapping[str, Any], cfg: GPTConfig,
-                    device: DeviceLike = None) -> Params:
+def _shapes(cfg: ModelConfig) -> dict:
+    if isinstance(cfg, gpt.GPTConfig):
+        return gpt.param_shapes(cfg)
+    if isinstance(cfg, llama.LlamaConfig):
+        return llama.param_shapes(cfg)
+    if isinstance(cfg, (list, tuple)):
+        return mlp_param_shapes(cfg)
+    raise TypeError(f"no params layout for {type(cfg).__name__}")
+
+
+def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
+                    device: DeviceLike = None) -> gpt.Params:
     """The port's f32 params from a nested dict of numpy arrays.  Raises on
     a missing or extra name or a shape that does not match ``cfg``."""
     dev = resolve_device(device)
@@ -40,10 +55,10 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: GPTConfig,
             out[name] = torch.from_numpy(arr.copy()).to(dev)
         return out
 
-    return convert(np_tree, param_shapes(cfg), "")
+    return convert(np_tree, _shapes(cfg), "")
 
 
-def params_to_numpy(params: Params) -> dict:
+def params_to_numpy(params: gpt.Params) -> dict:
     """The port's params as a nested dict of f32 numpy arrays (host
     copies), the tree ``params_from_jax`` takes."""
     return {k: params_to_numpy(v) if isinstance(v, dict)

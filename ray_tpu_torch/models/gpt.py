@@ -124,17 +124,10 @@ def gpt_init(seed_or_generator: Union[int, torch.Generator], cfg: GPTConfig,
     from ``jax.random``'s: parity tests convert JAX params instead."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
-    gen = seed_or_generator
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator().manual_seed(int(seed_or_generator))
+    normal = _normal_sampler(seed_or_generator, dev)
     scale = 0.02
     # residual-branch projections get the GPT-2 depth-scaled init
     rscale = scale / math.sqrt(2 * cfg.num_layers)
-
-    def normal(shape, std):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * std
-        return w.to(dev)
 
     def norm(shape):
         return {"scale": torch.ones(shape, device=dev),
@@ -161,6 +154,22 @@ def gpt_init(seed_or_generator: Union[int, torch.Generator], cfg: GPTConfig,
         },
         "ln_f": norm(shapes["ln_f"]["scale"]),
     }
+
+
+def _normal_sampler(seed_or_generator: Union[int, torch.Generator],
+                    device: torch.device) -> Callable:
+    """``normal(shape, std)``: f32 draws from the generator (a new CPU one
+    for a seed) on its own device, moved to ``device``."""
+    gen = seed_or_generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(seed_or_generator))
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std
+        return w.to(device)
+
+    return normal
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:
@@ -298,6 +307,29 @@ def _remat_context_fn(policy: str) -> Callable:
     return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
+def _remat(cfg, block: Callable, attn_fn: Callable, params: Params
+           ) -> Callable:
+    """``block`` under non-reentrant ``torch.utils.checkpoint`` with the
+    policy's selective-checkpoint context when ``cfg.remat`` and autograd
+    records (grad enabled and a param requires grad); else ``block``.
+    Shared by the model families, whose configs carry the same remat
+    fields."""
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(params))
+    if not (cfg.remat and recording):
+        return block
+    if (cfg.remat_policy in ("attn", "attn_dots")
+            and attn_fn is _dense_causal_attention_bnsh):
+        warnings.warn(
+            f"remat_policy={cfg.remat_policy!r} saves the flash "
+            f"attention op's output; dense attention is several ops "
+            f"and its output is recomputed, as under "
+            f"{'full' if cfg.remat_policy == 'attn' else 'dots'!r}",
+            UserWarning, stacklevel=3)
+    return functools.partial(checkpoint, block, use_reentrant=False,
+                             context_fn=_remat_context_fn(cfg.remat_policy))
+
+
 def _embed(params: Params, cfg: GPTConfig, tokens, pos):
     # Gather, then cast: the same values as the reference's cast-then-gather
     # without casting the whole table.
@@ -317,21 +349,8 @@ def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig
         raise ValueError(f"sequence {S} exceeds max_seq_len "
                          f"{cfg.max_seq_len}")
     attn_fn = _attention_fn(cfg, B, S, tokens.device)
-    block = functools.partial(_block, cfg, attn_fn)
-    recording = torch.is_grad_enabled() and any(
-        t.requires_grad for t in _leaves(params))
-    if cfg.remat and recording:
-        if (cfg.remat_policy in ("attn", "attn_dots")
-                and attn_fn is _dense_causal_attention_bnsh):
-            warnings.warn(
-                f"remat_policy={cfg.remat_policy!r} saves the flash "
-                f"attention op's output; dense attention is several ops "
-                f"and its output is recomputed, as under "
-                f"{'full' if cfg.remat_policy == 'attn' else 'dots'!r}",
-                UserWarning, stacklevel=2)
-        context_fn = _remat_context_fn(cfg.remat_policy)
-        block = functools.partial(checkpoint, block, use_reentrant=False,
-                                  context_fn=context_fn)
+    block = _remat(cfg, functools.partial(_block, cfg, attn_fn), attn_fn,
+                   params)
     pos = torch.arange(S, device=tokens.device)
     x = _embed(params, cfg, tokens, pos[None])
     for p in _layers(params, cfg.num_layers):
@@ -370,21 +389,25 @@ def token_loglikes(logits: torch.Tensor, targets: torch.Tensor
 # ------------------------------------------------------------------ loss
 
 
-def _chunk_loglike_sum(xc, head, tc):
-    return token_loglikes(torch.matmul(xc, head.t()), tc).sum()
+def _chunk_loglike_sum(xc, head, tc, head_layout):
+    w = head.t() if head_layout == "vd" else head
+    return token_loglikes(torch.matmul(xc, w), tc).sum()
 
 
 def blocked_ce_loglike_sum(x: torch.Tensor, head: torch.Tensor,
-                           targets: torch.Tensor, block: int
-                           ) -> torch.Tensor:
+                           targets: torch.Tensor, block: int,
+                           head_layout: str = "vd") -> torch.Tensor:
     """Sum of next-token loglikes with the head matmul and the CE fused per
     sequence chunk of ``block`` tokens, each chunk under non-reentrant
     ``torch.utils.checkpoint``: neither pass holds a [B, S, V] tensor, only
     one [B, block, V] chunk (the backward recomputes each chunk's logits).
-    ``head`` is [V, D], the tied GPT embedding (the reference's ``"vd"``
-    layout).  A block that does not split S into several chunks falls
-    back to the full logits with a ``RuntimeWarning``, or raises
-    ``ValueError`` under ``RT_STRICT_CE_BLOCK=1``."""
+    ``head_layout``: ``"vd"`` ([V, D], the tied GPT embedding) or ``"dv"``
+    ([D, V], LLaMA's untied head).  A block that does not split S into
+    several chunks falls back to the full logits with a
+    ``RuntimeWarning``, or raises ``ValueError`` under
+    ``RT_STRICT_CE_BLOCK=1``."""
+    if head_layout not in ("vd", "dv"):
+        raise ValueError(f"unknown head_layout {head_layout!r}")
     B, S, D = x.shape
     if S % block or S == block:
         msg = (f"ce_block={block} does not evenly split sequence length "
@@ -395,11 +418,11 @@ def blocked_ce_loglike_sum(x: torch.Tensor, head: torch.Tensor,
         if os.environ.get("RT_STRICT_CE_BLOCK") == "1":
             raise ValueError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)
-        return _chunk_loglike_sum(x, head, targets)
+        return _chunk_loglike_sum(x, head, targets, head_layout)
     total = torch.zeros((), device=x.device)
     for xc, tc in zip(x.split(block, dim=1), targets.split(block, dim=1)):
         total = total + checkpoint(_chunk_loglike_sum, xc, head, tc,
-                                   use_reentrant=False)
+                                   head_layout, use_reentrant=False)
     return total
 
 
@@ -414,7 +437,7 @@ def gpt_loss(params: Params, batch: Dict[str, torch.Tensor],
     if cfg.ce_block:
         x, _ = gpt_hidden(params, inputs, cfg)
         ll = blocked_ce_loglike_sum(x, params["wte"].to(cfg.dtype), targets,
-                                    cfg.ce_block)
+                                    cfg.ce_block, "vd")
         return -ll / targets.numel()
     logits, _ = gpt_forward_with_aux(params, inputs, cfg, keep_dtype=True)
     return -token_loglikes(logits, targets).mean()
@@ -434,25 +457,38 @@ def make_train_state(seed_or_generator: Union[int, torch.Generator],
     the same update.  ``weight_decay`` is passed to torch explicitly: its
     default (1e-2) is neither this function's (0.1) nor ``optax.adamw``'s
     (1e-4)."""
-    params = gpt_init(seed_or_generator, cfg, device)
+    return _adamw_state(gpt_init(seed_or_generator, cfg, device),
+                        learning_rate, weight_decay)
+
+
+def _adamw_state(params: Params, learning_rate: float, weight_decay: float
+                 ) -> Tuple[Params, torch.optim.AdamW]:
+    """(``params``, each set to require grad; AdamW over them with b2 0.95
+    and eps 1e-8), the optimizer of every family's ``make_train_state``."""
     leaves = [p.requires_grad_(True) for p in _leaves(params)]
     return params, torch.optim.AdamW(leaves, lr=learning_rate,
                                      betas=(0.9, 0.95), eps=1e-8,
                                      weight_decay=weight_decay)
 
 
-def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer
+def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer,
+                    loss_fn: Optional[Callable] = None
                     ) -> Callable[[Params, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """``step(params, batch) -> {"loss", "grad_norm"}``: one AdamW step of
-    ``gpt_loss``, updating ``params`` (the tensors ``optimizer`` holds) in
-    place.  ``grad_norm`` is the global L2 norm of the gradients, not
-    clipped (``optax.global_norm``).  The metrics stay on the device."""
+    ``loss_fn(params, batch)`` (``gpt_loss`` when None), updating
+    ``params`` (the tensors ``optimizer`` holds) in place.  ``grad_norm``
+    is the global L2 norm of the gradients, not clipped
+    (``optax.global_norm``).  The metrics stay on the device."""
+    if loss_fn is None:
+        def loss_fn(params, batch):
+            return gpt_loss(params, batch, cfg)
+
     def step(params: Params, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         tokens = batch["tokens"].to(params["wte"].device)
-        loss = gpt_loss(params, {"tokens": tokens}, cfg)
+        loss = loss_fn(params, {"tokens": tokens})
         loss.backward()
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in _leaves(params)])

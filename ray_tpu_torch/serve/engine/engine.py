@@ -16,8 +16,9 @@ single-thread executor, so the event loop keeps serving admissions and
 cancellations while the card computes, and the one lane keeps the pool
 updates (made in place) ordered.
 
-Not ported yet: the LLaMA model, the chaos hook of the reference's decode
-loop and ``LLMServer`` (both need the serve runtime).
+The model is GPT or LLaMA (``EngineConfig.model``); both prefill dense and
+decode against the paged pools.  Not ported yet: the chaos hook of the
+reference's decode loop and ``LLMServer`` (both need the serve runtime).
 """
 
 from __future__ import annotations
@@ -36,11 +37,22 @@ import torch
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt import (GPTConfig, gpt_decode_step, gpt_init,
                                       gpt_prefill, init_paged_cache)
+from ray_tpu_torch.models.llama import (LlamaConfig, llama_decode_step,
+                                        llama_init, llama_init_paged_cache,
+                                        llama_prefill)
 from ray_tpu_torch.serve.engine.kv_cache import PageAllocator, table_row
 
 logger = logging.getLogger(__name__)
 
 _DONE = object()
+
+# model name -> (config class, init, prefill, decode step, paged cache)
+_MODELS = {
+    "gpt": (GPTConfig, gpt_init, gpt_prefill, gpt_decode_step,
+            init_paged_cache),
+    "llama": (LlamaConfig, llama_init, llama_prefill, llama_decode_step,
+              llama_init_paged_cache),
+}
 
 
 class DeadlineExceeded(TimeoutError):
@@ -49,8 +61,8 @@ class DeadlineExceeded(TimeoutError):
 
 @dataclasses.dataclass
 class EngineConfig:
-    model: str = "gpt"                 # "gpt" ("llama" not ported yet)
-    model_config: Any = None           # GPTConfig; tiny default
+    model: str = "gpt"                 # "gpt" | "llama"
+    model_config: Any = None           # GPTConfig/LlamaConfig; tiny default
     page_size: int = 8
     num_pages: int = 128               # pool size; page 0 is scratch
     max_batch: int = 8                 # decode slots per step
@@ -91,13 +103,16 @@ class InferenceEngine:
         if cfg.max_prompt_len % cfg.page_size:
             raise ValueError("max_prompt_len must be a multiple of "
                              f"page_size ({cfg.page_size})")
-        if cfg.model == "llama":
-            raise NotImplementedError("the LLaMA engine model is not ported "
-                                      "yet")
-        if cfg.model != "gpt":
+        if cfg.model not in _MODELS:
             raise ValueError(f"unknown engine model '{cfg.model}'")
-        mc = cfg.model_config or GPTConfig.tiny(
+        config_cls, init_fn, self._prefill_fn, self._decode_fn, cache_fn = \
+            _MODELS[cfg.model]
+        mc = cfg.model_config or config_cls.tiny(
             seq=cfg.max_prompt_len + cfg.max_new_tokens)
+        if not isinstance(mc, config_cls):
+            raise TypeError(f"model '{cfg.model}' takes a "
+                            f"{config_cls.__name__}, got "
+                            f"{type(mc).__name__}")
         if mc.max_seq_len < cfg.max_prompt_len + cfg.max_new_tokens:
             raise ValueError(
                 f"model max_seq_len {mc.max_seq_len} < max_prompt_len + "
@@ -107,8 +122,8 @@ class InferenceEngine:
         self.model_config = mc
         self.device = resolve_device(cfg.device)
         self._params = params if params is not None else \
-            gpt_init(rng_seed, mc, self.device)
-        self._k_pages, self._v_pages = init_paged_cache(
+            init_fn(rng_seed, mc, self.device)
+        self._k_pages, self._v_pages = cache_fn(
             mc, cfg.num_pages, cfg.page_size, cfg.dtype, self.device)
         self._alloc = PageAllocator(cfg.num_pages)
         self._maxp = -(-(cfg.max_prompt_len + cfg.max_new_tokens)
@@ -252,7 +267,7 @@ class InferenceEngine:
         toks = np.zeros((1, self.config.max_prompt_len), np.int64)
         toks[0, : len(seq.prompt)] = seq.prompt
         dev = self.device
-        logits, self._k_pages, self._v_pages = gpt_prefill(
+        logits, self._k_pages, self._v_pages = self._prefill_fn(
             self._params, self.model_config, torch.from_numpy(toks).to(dev),
             len(seq.prompt), self._k_pages, self._v_pages,
             torch.from_numpy(seq.row[None]).to(dev))
@@ -262,7 +277,7 @@ class InferenceEngine:
                 tables: np.ndarray) -> np.ndarray:
         """Executor side: one batched decode step, next token per slot."""
         dev = self.device
-        logits, self._k_pages, self._v_pages = gpt_decode_step(
+        logits, self._k_pages, self._v_pages = self._decode_fn(
             self._params, self.model_config, torch.from_numpy(token).to(dev),
             torch.from_numpy(pos).to(dev), self._k_pages, self._v_pages,
             torch.from_numpy(tables).to(dev))

@@ -25,7 +25,8 @@ def _port_files():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_flash_kernel.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel.py",
-        ROOT / "tests" / "test_torch_splash_kernel.py"]
+        ROOT / "tests" / "test_torch_splash_kernel.py",
+        ROOT / "tests" / "test_torch_llama_kernel.py"]
     assert len(files) > 10
     return files
 
@@ -94,18 +95,27 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_a_card(no_card):
     from ray_tpu_torch import resolve_device
-    from ray_tpu_torch.models import (GPTConfig, gpt_init, init_paged_cache,
+    from ray_tpu_torch.models import (GPTConfig, LlamaConfig, gpt_init,
+                                      init_paged_cache, llama_init,
+                                      llama_init_paged_cache, mlp_init,
                                       params_from_jax)
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
 
     cfg = GPTConfig.tiny(vocab=32, seq=16)
+    lcfg = LlamaConfig.tiny(vocab=32, seq=16)
     tree = {"wte": np.zeros((32, 64), np.float32)}
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: gpt_init(0, cfg),
+                 lambda: llama_init(0, lcfg),
+                 lambda: mlp_init(0, [4, 8, 2]),
                  lambda: params_from_jax(tree, cfg),
                  lambda: init_paged_cache(cfg, 4, 8),
+                 lambda: llama_init_paged_cache(lcfg, 4, 8),
                  lambda: InferenceEngine(EngineConfig(model_config=cfg,
+                                                      max_prompt_len=8,
+                                                      max_new_tokens=8)),
+                 lambda: InferenceEngine(EngineConfig(model="llama",
                                                       max_prompt_len=8,
                                                       max_new_tokens=8))):
         with pytest.raises(RuntimeError, match="CUDA"):
