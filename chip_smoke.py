@@ -59,6 +59,23 @@ Every phase prints one JSON line and any failure exits nonzero:
            _llama_point (B=32, S=1024, bf16, remat "dots", ce_block 256,
            AdamW 3e-4 b2 0.95 wd 1e-4), under the same limits and exact
            launch counts as GPT's
+  moe_train_check, moe_train
+           MoE GPT-2-small (GPT-2-small's widths with 8 experts of 3072 in
+           every layer, top-2, capacity factor 1.25, aux coefficient 0.01:
+           Switch-Base-8's widths) under GPT's training checks and at
+           bench.py's configuration, launches 24/12/12 a step as GPT's;
+           MFU counted twice, by the params a token uses (model) and by
+           every capacity slot plus the dispatch and combine einsums
+           (executed), both formulas printed; the aux loss per layer and
+           the share of routed (token, choice) pairs dropped over capacity
+           on the check batch; a profile of one step
+  dist_single  the parallel layer in a one-rank NCCL world (FileStore in
+           a temporary directory): MeshSpec().build() on cuda, shard_params
+           of GPT-2-small, one sharded AdamW step with flash under the mesh
+           against the same step unsharded (bf16, [8, 1024]), each
+           collective once, ring attention at sp=1 on [4,12,1024,64] bf16
+           against plain causal attention, make_ring_attention_fn refusing
+           sp=1
   kernel_splash  the three splash kernels (forward; dq; dk and dv) against
            their plain versions run in f32: Llama 2 7B's attention
            [2,32,4096,128] bf16 causal at 128-blocks, [1,2,256,*] with
@@ -86,8 +103,9 @@ Every phase prints one JSON line and any failure exits nonzero:
            the main paths (forward and serve for the forward kernel, the
            timed training steps for the flash kernels, the autotune path
            for the splash kernels; the flash entries also each family's
-           inference and training launches), its error and its bf16 design
-           ("wgmma+tma" or "mma.sync"); all but the flash forward's entry
+           inference and training launches, MoE GPT's training among
+           them), its error and its bf16 design ("wgmma+tma" or
+           "mma.sync"); all but the flash forward's entry
            also their achieved TFLOP/s and the share of their bound they
            reach (the flash forward's under "train_call" and at the
            inference call); the flash backward's library time is SDPA's
@@ -165,6 +183,11 @@ BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # 0, on an H100 read a worst distance ratio of 1.077 and a worst cosine
 # gap of 5.1e-6; the limits leave room above those readings.
 LOSS_RTOL, GRAD_TOL, REL_MULT, COS_MARGIN = 1e-5, 1e-3, 1.25, 5e-5
+# The sharded step of a one-rank mesh against the unsharded step in bf16:
+# the same math but for the qkv projection, which the sharded block runs
+# as three products (parallel layer), so loss and grad norm within bf16
+# rounding.
+DIST_RTOL = 1e-2
 
 
 # Device time by kind of kernel in a profile, matched by name in order:
@@ -196,15 +219,18 @@ class Family:
 
 
 def family(cfg) -> Family:
+    """LLaMA's entry points for a LlamaConfig, else GPT's; an MoE GPT
+    (``num_experts > 0``, training only: serving keeps the dense FFN) has
+    the phase prefix ``moe_``."""
     from ray_tpu_torch import models as m
     if isinstance(cfg, m.LlamaConfig):
         return Family("llama", "llama_", m.llama_init, m.llama_forward,
                       m.llama_loss, m.llama_make_train_state,
                       m.llama_make_train_step, m.llama_decode_step,
                       m.llama_init_paged_cache)
-    return Family("gpt", "", m.gpt_init, m.gpt_forward, m.gpt_loss,
-                  m.make_train_state, m.make_train_step, m.gpt_decode_step,
-                  m.init_paged_cache)
+    return Family("gpt", "moe_" if cfg.num_experts else "", m.gpt_init,
+                  m.gpt_forward, m.gpt_loss, m.make_train_state,
+                  m.make_train_step, m.gpt_decode_step, m.init_paged_cache)
 
 
 def emit(phase: str, **fields):
@@ -702,6 +728,60 @@ def _rel_dist(a, b):
     return float((a - b).norm() / b.norm())
 
 
+def moe_flops(cfg, S, n_params):
+    """MFLOP per token of an MoE GPT training step, counted two ways, with
+    the formulas: the model's (bench.py's 6 N + 12 L S D over the params a
+    token uses: every non-expert param and top_k experts a layer) and the
+    executed (every capacity slot of every expert, the padding included,
+    plus the dispatch and combine einsums, 2 E C D each per token and
+    pass, three passes)."""
+    from ray_tpu_torch.ops.moe import moe_capacity
+    E, k, L, D, M = (cfg.num_experts, cfg.expert_top_k, cfg.num_layers,
+                     cfg.embed_dim, cfg.mlp_dim)
+    C = moe_capacity(S, k, E, cfg.capacity_factor)
+    per_expert = 2 * D * M + M + D
+    n_active = n_params - L * (E - k) * per_expert
+    n_shared = n_params - L * E * per_expert
+    attn = 12 * L * S * D
+    model = 6 * n_active + attn
+    executed = (6 * (n_shared + L * per_expert * E * C / S) + attn
+                + 12 * L * E * C * D)
+    return {"capacity": C, "n_active": n_active, "per_expert": per_expert,
+            "model_mflop_per_token": model / 1e6,
+            "executed_mflop_per_token": executed / 1e6,
+            "model_formula": "6*(N - L*(E-k)*P) + 12*L*S*D, P = 2*D*M+M+D",
+            "executed_formula": "6*(N - L*E*P + L*P*E*C/S) + 12*L*S*D "
+                                "+ 12*L*E*C*D"}
+
+
+def moe_routing_stats(params, tokens, cfg):
+    """(the load-balance loss per layer, the share of routed (token,
+    choice) pairs dropped over capacity, that share layer by layer) of one
+    no-grad forward of ``tokens``.  The drops are counted by wrapping the router's per-rank
+    routing (``ops.moe._route``) for this forward only."""
+    import torch
+    from ray_tpu_torch.models.gpt import gpt_hidden
+    from ray_tpu_torch.ops import moe as moe_ops
+
+    route, kept, routed = moe_ops._route, [], []
+
+    def counting(probs, top_k, capacity, dtype):
+        out = route(probs, top_k, capacity, dtype)
+        kept.append(out[0].float().sum())
+        routed.append(probs.shape[0] * probs.shape[1] * top_k)
+        return out
+
+    moe_ops._route = counting
+    try:
+        with torch.no_grad():
+            _, aux = gpt_hidden(params, tokens, cfg)
+    finally:
+        moe_ops._route = route
+    kept = [float(k) for k in kept]
+    return (float(aux) / cfg.num_layers, 1.0 - sum(kept) / sum(routed),
+            [1.0 - k / r for k, r in zip(kept, routed)])
+
+
 def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
     """Training at full width (GPT or LLaMA, by ``cfg``; phases
     ``train_check``, ``train``, ``train_profile``, with ``llama_`` before
@@ -717,10 +797,13 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
     params, opt = fam.train_state(SEED, cfg, learning_rate=3e-4,
                                   weight_decay=1e-4, device=dev)
     names = [n for n, _ in named_leaves(params)]
-    # bench.py's model FLOPs per token: 6 N + 12 L S D
+    # bench.py's model FLOPs per token: 6 N + 12 L S D (N the params a
+    # token uses, for an MoE GPT)
     n_params = sum(p.numel() for _, p in named_leaves(params))
-    mflop_per_token = (6 * n_params + 12 * cfg.num_layers * S *
-                       cfg.embed_dim) / 1e6
+    moe = moe_flops(cfg, S, n_params) if fam.prefix == "moe_" else None
+    mflop_per_token = (moe["model_mflop_per_token"] if moe else
+                       (6 * n_params + 12 * cfg.num_layers * S *
+                        cfg.embed_dim) / 1e6)
     gen = torch.Generator().manual_seed(SEED + 1)
     check_tokens = torch.randint(0, cfg.vocab_size, (check_B, S + 1),
                                  generator=gen).to(dev)
@@ -758,7 +841,8 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
          bf16_worst_cos_gap=max(gaps),
          bf16_worst_cos_gap_leaf=names[max(range(len(gaps)),
                                            key=gaps.__getitem__)],
-         cos_margin=COS_MARGIN, bf16_max_rel_dist_flash=max(rel_flash),
+         cos_margin=None if moe else COS_MARGIN,
+         bf16_max_rel_dist_flash=max(rel_flash),
          bf16_max_rel_dist_dense=max(rel_dense),
          bf16_worst_rel_dist_ratio=rel_ratios[worst_rel],
          bf16_worst_rel_dist_ratio_leaf=names[worst_rel],
@@ -768,8 +852,16 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
     check(loss_rel <= LOSS_RTOL, "f32 flash loss not within 1e-5 of dense")
     check(max(ratios) <= GRAD_TOL,
           f"f32 flash grad of {names[worst]} too far from dense")
-    check(max(gaps) <= COS_MARGIN,
-          "bf16 flash grads' cosine further from f32 than bf16 dense's")
+    # The cosine margin is absolute, set on dense models whose bf16 grads
+    # keep cosines near 0.9999 with f32's.  An MoE's bf16 forward routes
+    # some tokens to other experts than its f32 forward (top-2 of gates
+    # closer than bf16 rounding), in both paths alike, which takes both
+    # cosines to about 0.95 (MoE GPT-2-small at [2, 1024], seed 0, on an
+    # H100): there the scale-free relative-distance limit below is the
+    # check.
+    if not moe:
+        check(max(gaps) <= COS_MARGIN,
+              "bf16 flash grads' cosine further from f32 than bf16 dense's")
     check(all(f <= REL_MULT * d for f, d in zip(rel_flash, rel_dense)),
           f"bf16 flash grad of {names[worst_rel]} further from f32 than "
           f"{REL_MULT} x the bf16 dense grad's distance")
@@ -808,6 +900,17 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
     ms = secs / steps * 1e3
     tok_s = B * S * steps / secs
     per_step = [2 * L, L, L, 0, 0, 0]
+    extra = {}
+    if moe:
+        aux, dropped, by_layer = moe_routing_stats(params,
+                                                   check_tokens[:, :-1], cfg)
+        extra = dict(moe, experts=cfg.num_experts, top_k=cfg.expert_top_k,
+                     capacity_factor=cfg.capacity_factor,
+                     mfu_executed=tok_s * moe["executed_mflop_per_token"]
+                     * 1e6 / 989e12, aux_loss_per_layer=aux,
+                     dropped_share=dropped, dropped_share_by_layer=by_layer,
+                     routing_batch=[check_B, S],
+                     card=nvidia_smi_line())
     emit(fam.prefix + "train", batch=B, seq=S, dtype="bfloat16",
          remat_policy="dots", ce_block=cfg.ce_block, warm_steps=warm,
          timed_steps=steps, ms_per_step=ms, samples_per_s=B * steps / secs,
@@ -817,7 +920,7 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
          launches=dict(zip(KERNEL_NAMES, launches)),
          launches_per_step=per_step, other_policies_launches=policies,
          peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
-                         if dev.type == "cuda" else None))
+                         if dev.type == "cuda" else None), **extra)
     check(all(math.isfinite(x) for x in losses + norms),
           "training loss or grad norm not finite")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
@@ -1318,6 +1421,134 @@ def phase_attention_shapes(dev, shapes=ATTENTION_SHAPES):
         del q, k, v, do, o, lse, di
 
 
+# ---------------------------------------------------------- parallel layer
+
+
+def phase_dist_single(dev, cfg, B=8, S=1024, ring_shape=(4, 1024, 12, 64)):
+    """The parallel layer in a one-rank NCCL world on the card (one card:
+    multi-rank runs are held on the CPU over gloo, in the tests): the
+    process group from a FileStore in a temporary directory, destroyed at
+    the end.  ``MeshSpec().build()`` on cuda; ``shard_params`` of the
+    model; one sharded AdamW step (flash under the mesh) against the same
+    step unsharded, in bf16 (loss and grad norm within DIST_RTOL, exact
+    flash launches); each collective once (identities on a one-rank
+    group); ring attention at sp=1 on [4,12,1024,64] bf16 (as [B, S, N,
+    H]) no further from the plain causal attention in f32 than
+    REL_MULT x the plain attention in bf16;
+    ``make_ring_attention_fn`` refusing sp=1.  On the CPU (a rehearsal at
+    a tiny config) it runs over gloo and launches no kernel."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.ops.flash_attention import _dense_reference
+    from ray_tpu_torch.ops.ring_attention import (make_ring_attention_fn,
+                                                  ring_attention)
+    from ray_tpu_torch.parallel import (AXIS_ORDER, LogicalAxisRules,
+                                        MeshSpec, P, all_gather, all_reduce,
+                                        all_to_all, barrier_sum,
+                                        ppermute_ring, psum_scatter,
+                                        shard_map, shard_params)
+    from ray_tpu_torch.models.gpt import gpt_param_axes
+
+    fam = family(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    cuda = dev.type == "cuda"          # gloo and "cpu" only to rehearse
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1), rank=0, world_size=1)
+    try:
+        spec = MeshSpec()
+        mesh = spec.build() if cuda else spec.build("cpu")
+        check(mesh.device_type == dev.type and
+              tuple(mesh.mesh_dim_names) == AXIS_ORDER,
+              f"mesh {mesh} is not the six named dims on cuda")
+        rules = LogicalAxisRules.for_transformer(spec)
+        gen = torch.Generator().manual_seed(SEED + 2)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                               generator=gen).to(dev)
+        steps = {}
+        for name in ("unsharded", "sharded"):
+            params = fam.init(SEED, cfg, device=dev)
+            mesh_kw = {}
+            if name == "sharded":
+                params = shard_params(params, mesh, rules,
+                                      gpt_param_axes(cfg))
+                mesh_kw = dict(rules=rules, mesh=mesh)
+            leaves = [q.requires_grad_(True) for _, q in named_leaves(params)]
+            opt = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.95),
+                                    eps=1e-8, weight_decay=1e-4)
+            step = fam.train_step(cfg, opt, **mesh_kw)
+            reset_launch_counts()
+            m = step(params, {"tokens": tokens})
+            sync(dev)
+            steps[name] = (float(m["loss"]), float(m["grad_norm"]),
+                           launch_counts())
+            del params, opt, leaves, step
+            empty_cache(dev)
+        (l0, n0, k0), (l1, n1, k1) = steps["unsharded"], steps["sharded"]
+        L = cfg.num_layers if cuda else 0
+        loss_rel, norm_rel = abs(l1 - l0) / abs(l0), abs(n1 - n0) / abs(n0)
+
+        x = torch.arange(8.0, device=dev)
+        rep, one = P(None), (P("tp"),)
+        got = {
+            "all_reduce": shard_map(lambda v: all_reduce(v, "tp"), mesh,
+                                    one, P("tp"))(x),
+            "all_gather": shard_map(lambda v: all_gather(v, "tp"), mesh,
+                                    one, rep)(x),
+            "psum_scatter": shard_map(lambda v: psum_scatter(v, "tp"), mesh,
+                                      one, P("tp"))(x),
+            "all_to_all": shard_map(lambda v: all_to_all(
+                v[None], "tp", 1, 0)[0], mesh, one, P("tp"))(x),
+            "ppermute_ring": shard_map(lambda v: ppermute_ring(v, "tp"),
+                                       mesh, one, P("tp"))(x),
+            "barrier_sum": shard_map(lambda v: v + barrier_sum("tp"), mesh,
+                                     one, P("tp"))(x.int()),
+        }
+        collectives_ok = {k: bool((v.full_tensor().float() == x).all())
+                          for k, v in got.items()}
+
+        qkv = case_inputs(torch.Generator(device=dev).manual_seed(SEED), dev,
+                          ring_shape, "bfloat16", False, 3)
+        ring = ring_attention(*qkv, mesh).full_tensor()
+        ref = _dense_reference(*(t.float() for t in qkv), True, None)
+        ring_err = float((ring.float() - ref).abs().max())
+        # The ring's scores are bf16 products, as the reference's, so it is
+        # held to the plain bf16 attention's distance from f32, as the
+        # training checks hold the bf16 grads.
+        dense_err = float((_dense_reference(*qkv, True, None).float()
+                           - ref).abs().max())
+        refused = False
+        try:
+            make_ring_attention_fn(mesh)
+        except ValueError:
+            refused = True
+        emit("dist_single", backend=dist.get_backend(), world_size=1,
+             mesh=spec.axis_sizes, batch=B, seq=S,
+             loss_unsharded=l0, loss_sharded=l1, loss_rel_diff=loss_rel,
+             grad_norm_unsharded=n0, grad_norm_sharded=n1,
+             grad_norm_rel_diff=norm_rel, rtol=DIST_RTOL,
+             launches_sharded_step=dict(zip(KERNEL_NAMES, k1)),
+             collectives=collectives_ok, ring_sp1_shape=list(ring_shape),
+             ring_sp1_max_abs_err=ring_err,
+             dense_bf16_max_abs_err=dense_err, rel_mult=REL_MULT,
+             ring_fn_refuses_sp1=refused,
+             card=nvidia_smi_line())
+        check(loss_rel <= DIST_RTOL and norm_rel <= DIST_RTOL,
+              f"sharded step {l1}, {n1} against unsharded {l0}, {n0}")
+        want = (2 * L, L, L, 0, 0, 0)
+        check(k0 == want and k1 == want,
+              f"flash launches of a step {k0} unsharded, {k1} sharded, "
+              f"expected {want}")
+        check(all(collectives_ok.values()), f"collectives {collectives_ok}")
+        check(ring_err <= REL_MULT * dense_err,
+              f"ring attention at sp=1 off by {ring_err}, bf16 dense by "
+              f"{dense_err}")
+        check(refused, "make_ring_attention_fn took a mesh with sp=1")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1403,9 +1634,17 @@ def run() -> int:
     for name, launches in (("GPT", infer_launches), ("LLaMA", llama_infer)):
         check(launches[0] > 0 and launches[1:] == (0, 0, 0, 0, 0),
               f"{name} inference path launches {launches}")
-    for name, t in (("GPT", train), ("LLaMA", llama_train)):
+    # MoE GPT-2-small (Switch-Base-8's widths: 8 experts of 3072, top-2
+    # routing in every layer) at the same training settings.
+    moe_cfg = dataclasses.replace(cfg, num_experts=8, **train_kw)
+    moe_train = phase_train(dev, moe_cfg, B=32, S=1024)
+    empty_cache(dev)
+    for name, t in (("GPT", train), ("LLaMA", llama_train),
+                    ("MoE GPT", moe_train)):
         check(all(t["launches"][:3]), f"the {name} training path missed a "
               f"kernel")
+    phase_dist_single(dev, dataclasses.replace(cfg, **train_kw))
+    empty_cache(dev)
 
     reset_launch_counts()                     # the autotune path starts
     phase_autotune(dev, cfg)
@@ -1438,16 +1677,19 @@ def run() -> int:
         {"name": "flash_fwd", "source": "ray_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:91",
          "launches": infer_launches[0] + train["launches"][0] +
-         llama_infer[0] + llama_train["launches"][0],
+         llama_infer[0] + llama_train["launches"][0] +
+         moe_train["launches"][0],
          "launches_inference": infer_launches[0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],
+         "launches_moe_train": moe_train["launches"][0],
          "launches_autotune": tune_launches[0],
          "launches_per_forward": fwd["launches_per_forward"],
          "launches_per_llama_forward": llama_fwd["launches_per_forward"],
          "launches_per_train_step": train["per_step"][0],
          "launches_per_llama_train_step": llama_train["per_step"][0],
+         "launches_per_moe_train_step": moe_train["per_step"][0],
          "max_abs_err": main_o, "lse_max_abs_err": main_lse,
          "train_call_max_abs_err": errs[TRAIN_CASE[0]][0],
          "train_call_lse_max_abs_err": errs[TRAIN_CASE[0]][1],
@@ -1455,24 +1697,30 @@ def run() -> int:
          "design": FLASH_BF16_DESIGN["fwd"], **common},
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
-         "launches": train["launches"][1] + llama_train["launches"][1],
+         "launches": train["launches"][1] + llama_train["launches"][1] +
+         moe_train["launches"][1],
          "launches_train": train["launches"][1],
          "launches_llama_train": llama_train["launches"][1],
+         "launches_moe_train": moe_train["launches"][1],
          "launches_llama_inference": llama_infer[1],
          "launches_autotune": tune_launches[1],
          "launches_per_train_step": train["per_step"][1],
+         "launches_per_moe_train_step": moe_train["per_step"][1],
          "max_abs_err": train_errs["dq"],
          **bwd_times["dq"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dq"], "shape": list(TRAIN_CASE[1]),
          **common},
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
-         "launches": train["launches"][2] + llama_train["launches"][2],
+         "launches": train["launches"][2] + llama_train["launches"][2] +
+         moe_train["launches"][2],
          "launches_train": train["launches"][2],
          "launches_llama_train": llama_train["launches"][2],
+         "launches_moe_train": moe_train["launches"][2],
          "launches_llama_inference": llama_infer[2],
          "launches_autotune": tune_launches[2],
          "launches_per_train_step": train["per_step"][2],
+         "launches_per_moe_train_step": moe_train["per_step"][2],
          "max_abs_err": max(train_errs["dk"], train_errs["dv"]),
          **bwd_times["dkv"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dkv"], "shape": list(TRAIN_CASE[1]),

@@ -1,7 +1,7 @@
 """ray_tpu_torch: the compute side of ray_tpu in PyTorch, for NVIDIA Hopper.
 
 The package mirrors ``ray_tpu``'s layout (``ops/``, ``models/``,
-``serve/engine/``) and keeps its parameter names and layouts, so weights
+``parallel/``, ``serve/engine/``, ``autotune/``) and keeps its parameter names and layouts, so weights
 convert one to one.  Every TPU kernel that ``ray_tpu`` wrote in Pallas is a
 CUDA kernel here, written by hand for ``sm_90a`` (sources in ``csrc/``,
 built with nvcc at first use and loaded through ctypes).

@@ -19,9 +19,10 @@ On a cache miss the behavior is set by ``RT_AUTOTUNE_ON_MISS``:
   default 30 s per shape) and persist;
 * offline: ``python -m ray_tpu_torch.autotune.sweep`` once per fleet.
 
-Ring attention waits for the parallel slice (ROADMAP A4): the port's
-dispatcher takes no mesh, and ``variant="ring"`` raises
-``NotImplementedError``.
+``mesh`` (a ``DeviceMesh`` with an ``sp`` dim larger than 1) makes the
+ring variant applicable at causal shapes whose S it divides; every rank of
+the mesh must make the same calls.  The ring variant's output is a
+DTensor split over the mesh (``.full_tensor()`` gathers it).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ray_tpu_torch.autotune.cache import (attention_key, backend_fingerprint,
                                           canon_dtype, get_cache)
 from ray_tpu_torch.ops.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS
 from ray_tpu_torch.ops.flash_attention import _dense_reference, flash_attention
+from ray_tpu_torch.ops.ring_attention import make_ring_attention_fn
 from ray_tpu_torch.ops.splash_attention import (causal_mha_mask,
                                                 process_mask,
                                                 splash_attention)
@@ -77,15 +79,24 @@ def _flash_ok(kd: dict, device: torch.device) -> bool:
     return kd["H"] in FLASH_HEAD_DIMS
 
 
-def applicable_variants(kd: dict, device: torch.device) -> List[str]:
-    """Which variants can run at this shape on this device.  Order is the
-    tie-break preference (earlier wins on equal timings)."""
+def applicable_variants(kd: dict, device: torch.device,
+                        mesh=None) -> List[str]:
+    """Which variants can run at this shape on this device (and mesh).
+    Order is the tie-break preference (earlier wins on equal timings)."""
     out = ["dense"]
     if _flash_ok(kd, device):
         out.insert(0, "flash")
     if _search.splash_supported(kd, device):
         out.insert(0, "splash")
+    if mesh is not None and kd.get("causal", True) and _ring_ok(kd, mesh):
+        out.append("ring")
     return out
+
+
+def _ring_ok(kd: dict, mesh) -> bool:
+    names = list(mesh.mesh_dim_names or ())
+    sp = mesh.size(names.index("sp")) if "sp" in names else 1
+    return sp > 1 and kd["S"] % sp == 0
 
 
 # --------------------------------------------------------------- choice
@@ -118,7 +129,7 @@ def _heuristic_variant(S: int, allowed: Tuple[str, ...],
 
 def choose(B: int, S: int, N: int, H: int, dtype: Any, causal: bool = True,
            allowed: Optional[Tuple[str, ...]] = None,
-           device=None) -> Tuple[str, Optional[dict]]:
+           device=None, mesh=None) -> Tuple[str, Optional[dict]]:
     """Pick the attention variant for a shape on ``device`` (default: the
     card).
 
@@ -128,7 +139,7 @@ def choose(B: int, S: int, N: int, H: int, dtype: Any, causal: bool = True,
     dev = resolve_device(device)
     kd = {"B": B, "S": S, "N": N, "H": H,
           "dtype": canon_dtype(dtype), "causal": bool(causal)}
-    avail = applicable_variants(kd, dev)
+    avail = applicable_variants(kd, dev, mesh)
     if allowed is not None:
         avail = [v for v in avail if v in allowed]
     if not avail:
@@ -154,7 +165,7 @@ def choose(B: int, S: int, N: int, H: int, dtype: Any, causal: bool = True,
         if variant is None and on_miss_mode() == "inline":
             rec = tune_attention(B, S, N, H, dtype, causal,
                                  variants=allowed_t, device=dev,
-                                 budget_s=_budget_s())
+                                 mesh=mesh, budget_s=_budget_s())
             if rec is not None:
                 v = (rec.get("config") or {}).get("variant")
                 if v in allowed_t:
@@ -184,7 +195,7 @@ def auto_variant(B: int, S: int, N: int, H: int, dtype: Any,
 def tune_attention(B: int, S: int, N: int, H: int, dtype: Any,
                    causal: bool = True,
                    variants: Optional[Tuple[str, ...]] = None,
-                   device=None, budget_s: Optional[float] = None,
+                   device=None, mesh=None, budget_s: Optional[float] = None,
                    force: bool = False) -> Optional[dict]:
     """Time every applicable variant on ``device`` (tuning each variant's
     own config first) and persist the crossover winner as an
@@ -199,7 +210,7 @@ def tune_attention(B: int, S: int, N: int, H: int, dtype: Any,
         rec = cache.lookup(VARIANT_OP, key, backend=backend, count=False)
         if rec is not None:
             return rec
-    avail = applicable_variants(kd, dev)
+    avail = applicable_variants(kd, dev, mesh)
     if variants is not None:
         avail = [v for v in avail if v in variants]
     t0 = time.perf_counter()
@@ -207,9 +218,10 @@ def tune_attention(B: int, S: int, N: int, H: int, dtype: Any,
     per_budget = None
     if budget_s is not None and avail:
         per_budget = budget_s / len(avail)
+    context = {"mesh": mesh} if mesh is not None else None
     for v in avail:
         rec = _search.tune(_VARIANT_OPS[v], key, device=dev,
-                           budget_s=per_budget, force=force)
+                           budget_s=per_budget, context=context, force=force)
         timings[v] = rec.get("ms") if rec else None
     _am.bump("autotune_tune_ms", (time.perf_counter() - t0) * 1e3)
     winner = choose_variant_from_timings(timings)
@@ -252,13 +264,22 @@ def _bnsh(x, layout: str):
 
 
 def _run_variant(variant: str, q, k, v, causal: bool, sm_scale,
-                 layout: str, config: Optional[dict]):
+                 layout: str, config: Optional[dict], mesh=None):
     if variant == "flash":
         cfg = config or {}
         return flash_attention(q, k, v, causal, cfg.get("block_q"),
                                cfg.get("block_k"), sm_scale, layout)
     if variant == "ring":
-        raise NotImplementedError(_search.RING_NOT_PORTED)
+        if mesh is None:
+            raise ValueError("the ring variant needs a mesh with an sp "
+                             "axis (mesh=)")
+        if not causal or sm_scale is not None:
+            raise ValueError("the ring variant is causal, at scale "
+                             "1/sqrt(H)")
+        qs, ks, vs = (x.transpose(1, 2) if layout == "bnsh" else x
+                      for x in (q, k, v))
+        o = make_ring_attention_fn(mesh)(qs, ks, vs)
+        return o.transpose(1, 2) if layout == "bnsh" else o
     if variant == "splash":
         if not causal:
             raise ValueError("the splash variant runs the causal mask only")
@@ -277,20 +298,22 @@ def _run_variant(variant: str, q, k, v, causal: bool, sm_scale,
 
 
 def attention(q, k, v, causal: bool = True, sm_scale=None,
-              variant: Optional[str] = None, layout: str = "bsnh"):
+              variant: Optional[str] = None, layout: str = "bsnh",
+              mesh=None):
     """Dispatched multi-head attention on q's device.
 
     q, k, v: [B, S, N, H] ("bsnh", default) or [B, N, S, H] ("bnsh").
-    ``variant`` forces one ("flash"/"dense"/"splash"; "ring" raises until
-    the parallel slice); None consults the autotune cache (measured
-    crossover) with the on-miss policy."""
+    ``variant`` forces one ("flash"/"dense"/"splash"/"ring"); None
+    consults the autotune cache (measured crossover) with the on-miss
+    policy.  ``mesh`` enables the ring variant (sequence sharded over its
+    "sp" dim)."""
     if layout == "bnsh":
         B, N, S, H = q.shape
     else:
         B, S, N, H = q.shape
     if variant is None:
         variant, _rec = choose(B, S, N, H, q.dtype, causal,
-                               device=q.device)
+                               device=q.device, mesh=mesh)
     cfg = None
     if variant in ("flash", "splash"):
         rec = get_cache().lookup(_VARIANT_OPS[variant],
@@ -298,7 +321,8 @@ def attention(q, k, v, causal: bool = True, sm_scale=None,
                                  backend=backend_fingerprint(q.device),
                                  count=False)
         cfg = rec.get("config") if rec else None
-    return _run_variant(variant, q, k, v, causal, sm_scale, layout, cfg)
+    return _run_variant(variant, q, k, v, causal, sm_scale, layout, cfg,
+                        mesh)
 
 
 __all__ = ["attention", "choose", "auto_variant", "tune_attention",

@@ -232,12 +232,22 @@ def dense_build(kd: dict, cfg: dict, device: torch.device, context: dict):
     return _fwdbwd_timed(loss, q, k, v)
 
 
-RING_NOT_PORTED = ("ring attention needs the parallel layer, which is not "
-                   "ported yet")
-
-
 def ring_build(kd: dict, cfg: dict, device: torch.device, context: dict):
-    raise NotImplementedError(RING_NOT_PORTED)
+    """Ring attention needs a mesh with an sp axis, supplied through
+    ``context={"mesh": mesh}`` (mesh topology is runtime state, not part
+    of the shape key).  Every rank of the mesh runs the same sweep."""
+    from ray_tpu_torch.ops.ring_attention import make_ring_attention_fn
+    mesh = context.get("mesh")
+    if mesh is None:
+        raise ValueError("ring_attention tuning requires context['mesh']")
+    if not kd["causal"]:
+        raise ValueError("ring_attention is causal-only")
+    ring = make_ring_attention_fn(mesh)
+    q, k, v = _qkv_for(kd, device)
+
+    def loss(q, k, v):
+        return ring(q, k, v).float().sum()
+    return _fwdbwd_timed(loss, q, k, v)
 
 
 def splash_supported(kd: dict, device: Optional[torch.device] = None

@@ -1,7 +1,8 @@
 """ray_tpu_torch.models: model definitions as plain functions on tensors.
 
-GPT and LLaMA (training: loss, remat and the AdamW step; inference: the
-full forward and the paged entry points the serving engine drives), and
+GPT (dense or MoE) and LLaMA (training: loss, remat and the AdamW step,
+sharded over a mesh by their param axes; inference: the full forward and
+the paged entry points the serving engine drives), and
 the small ReLU MLP of the train and tune tests.  The LLaMA train-state
 and train-step functions are exported with a ``llama_`` prefix beside
 GPT's.
@@ -20,6 +21,7 @@ from ray_tpu_torch.models.gpt import (  # noqa: F401
     gpt_hidden,
     gpt_init,
     gpt_loss,
+    gpt_param_axes,
     gpt_prefill,
     init_paged_cache,
     make_train_state,
@@ -35,6 +37,7 @@ from ray_tpu_torch.models.llama import (  # noqa: F401
     llama_init,
     llama_init_paged_cache,
     llama_loss,
+    llama_param_axes,
     llama_prefill,
     rope_tables,
 )

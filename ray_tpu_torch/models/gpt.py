@@ -8,13 +8,22 @@ are f32; compute runs in ``cfg.dtype`` with each param cast before its add
 or product and layer-norm statistics in f32, as in the reference.
 
 Attention is head-major (``bnsh``): the qkv projection writes ``[B, 3, N,
-S, H]`` and the flash kernels read ``qkv[:, 0..2]`` through strides.  The
+S, H]`` and the flash kernels read its q, k, v views through strides.  The
 layer loop is a Python loop over the stacked params (unbound once, so the
 backward stacks each leaf's layer grads in one op).  The trunk is
-differentiable: ``gpt_loss`` (full or blocked cross-entropy head),
-per-block rematerialization (``cfg.remat``, four policies) and
-``make_train_step`` (AdamW) are the training path; ``gpt_prefill`` and
-``gpt_decode_step`` run under ``torch.inference_mode`` for serving.
+differentiable: ``gpt_loss`` (full or blocked cross-entropy head, plus the
+MoE load-balance loss), per-block rematerialization (``cfg.remat``, four
+policies) and ``make_train_step`` (AdamW) are the training path;
+``gpt_prefill`` and ``gpt_decode_step`` run under ``torch.inference_mode``
+for serving, with the dense FFN only, as the reference's.
+
+With ``num_experts > 0`` every block's FFN is the MoE of ``ops/moe.py``.
+Sharded (the reference's GSPMD mode): params placed by
+``parallel.shard_params`` over ``gpt_param_axes`` are DTensors, ``rules``
+redistributes the activations at the reference's constraint points, and
+attention runs per rank on whole sequences (batch and heads sharded as q
+is), so the flash op sees local tensors; ``attention="ring"`` with a mesh
+runs ring attention over its ``sp`` dim instead.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -35,8 +45,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.autotune.dispatch import choose
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
+from ray_tpu_torch.ops.moe import moe_mlp
 from ray_tpu_torch.ops.paged_attention import (append_kv, paged_attention,
                                                prefill_kv)
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+from ray_tpu_torch.parallel.sharding import (LogicalAxisRules, P,
+                                             gather_dims, local_to_dtensor,
+                                             logical_sharding, per_rank,
+                                             shard_map,
+                                             with_logical_constraint)
 
 Params = Dict[str, Any]
 
@@ -59,12 +76,14 @@ class GPTConfig:
     # "auto" takes the autotune cache's measured crossover record for the
     # shape when there is one, else flash at S >= 1024 (S % 128 == 0) on
     # a CUDA device and dense otherwise; "dense" and "flash" pin the
-    # implementation.
+    # implementation; "ring" runs ring attention over the mesh's sp dim
+    # (dense without a mesh, as the reference).
     attention: str = "auto"
     # Sequence-block size of the blocked cross-entropy head (0 = the full
     # [B, S, V] logits).
     ce_block: int = 0
-    # MoE fields of the reference; num_experts > 0 is not ported yet.
+    # MoE (0 = dense FFN): experts shard over the ep mesh axis; routing is
+    # GShard/Switch-style capacity-bounded top-k dispatch (ops/moe.py).
     num_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -90,16 +109,21 @@ class GPTConfig:
 
 def param_shapes(cfg: GPTConfig) -> Params:
     """The params tree as shapes: the one statement of the layout, shared
-    by ``gpt_init`` and ``params_from_jax``."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE GPT (num_experts > 0) is not ported "
-                                  "yet")
+    by ``gpt_init`` and ``params_from_jax``.  With experts, the FFN is
+    the expert tree (``router [L,D,E]``, ``wi [L,E,D,M]``, ``bi [L,E,M]``,
+    ``wo [L,E,M,D]``, ``bo [L,E,D]``)."""
     D, H, M, L, V = (cfg.embed_dim, cfg.head_dim, cfg.mlp_dim,
                      cfg.num_layers, cfg.vocab_size)
-    nh = cfg.num_heads
+    nh, E = cfg.num_heads, cfg.num_experts
 
     def norm(*shape):
         return {"scale": shape, "bias": shape}
+
+    if E:
+        mlp = {"router": (L, D, E), "wi": (L, E, D, M), "bi": (L, E, M),
+               "wo": (L, E, M, D), "bo": (L, E, D)}
+    else:
+        mlp = {"wi": (L, D, M), "bi": (L, M), "wo": (L, M, D), "bo": (L, D)}
 
     return {
         "wte": (V, D),
@@ -109,8 +133,7 @@ def param_shapes(cfg: GPTConfig) -> Params:
             "attn": {"wqkv": (L, D, 3, nh, H), "wo": (L, nh, H, D),
                      "bo": (L, D)},
             "ln2": norm(L, D),
-            "mlp": {"wi": (L, D, M), "bi": (L, M), "wo": (L, M, D),
-                    "bo": (L, D)},
+            "mlp": mlp,
         },
         "ln_f": norm(D),
     }
@@ -133,6 +156,13 @@ def gpt_init(seed_or_generator: Union[int, torch.Generator], cfg: GPTConfig,
         return {"scale": torch.ones(shape, device=dev),
                 "bias": torch.zeros(shape, device=dev)}
 
+    def mlp(shapes):
+        # Weights drawn in the tree's order (router first); biases zero.
+        return {k: (normal(v, rscale if k == "wo" else scale)
+                    if k in ("router", "wi", "wo")
+                    else torch.zeros(v, device=dev))
+                for k, v in shapes.items()}
+
     lay = shapes["layers"]
     return {
         "wte": normal(shapes["wte"], scale),
@@ -145,14 +175,47 @@ def gpt_init(seed_or_generator: Union[int, torch.Generator], cfg: GPTConfig,
                 "bo": torch.zeros(lay["attn"]["bo"], device=dev),
             },
             "ln2": norm(lay["ln2"]["scale"]),
-            "mlp": {
-                "wi": normal(lay["mlp"]["wi"], scale),
-                "bi": torch.zeros(lay["mlp"]["bi"], device=dev),
-                "wo": normal(lay["mlp"]["wo"], rscale),
-                "bo": torch.zeros(lay["mlp"]["bo"], device=dev),
-            },
+            "mlp": mlp(lay["mlp"]),
         },
         "ln_f": norm(shapes["ln_f"]["scale"]),
+    }
+
+
+def gpt_param_axes(cfg: GPTConfig) -> Params:
+    """Logical-axis annotation tree matching ``gpt_init``'s output."""
+    if cfg.num_experts:
+        # Router stays expert-replicated (every token scores every expert);
+        # expert weights shard on the leading E dim -> ep mesh axis.
+        mlp = {
+            "router": ("layers", "embed", None),
+            "wi": ("layers", "expert", "embed", "mlp"),
+            "bi": ("layers", "expert", "mlp"),
+            "wo": ("layers", "expert", "mlp", "embed"),
+            "bo": ("layers", "expert", "embed"),
+        }
+    else:
+        mlp = {
+            "wi": ("layers", "embed", "mlp"),
+            "bi": ("layers", "mlp"),
+            "wo": ("layers", "mlp", "embed"),
+            "bo": ("layers", "norm"),
+        }
+    return {
+        # wte sharded on embed (not vocab): token lookup is a gather, and
+        # the tied LM head contracts over embed.
+        "wte": (None, "embed"),
+        "wpe": (None, "embed"),
+        "layers": {
+            "ln1": {"scale": ("layers", "norm"), "bias": ("layers", "norm")},
+            "attn": {
+                "wqkv": ("layers", "embed", None, "heads", "kv"),
+                "wo": ("layers", "heads", "kv", "embed"),
+                "bo": ("layers", "norm"),
+            },
+            "ln2": {"scale": ("layers", "norm"), "bias": ("layers", "norm")},
+            "mlp": mlp,
+        },
+        "ln_f": {"scale": ("norm",), "bias": ("norm",)},
     }
 
 
@@ -184,8 +247,10 @@ def _layers(params: Params, num_layers: int) -> List[Params]:
     """Each layer's slice of the stacked ``[L, ...]`` params (views from one
     ``unbind`` per leaf, whose backward is one ``stack``)."""
     def split(tree):
-        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
-                for k, v in tree.items()}
+        # A DTensor split over its layer dim (the pp axis) is gathered, as
+        # a loop over pp-sharded layers without a pipeline gathers them.
+        return {k: split(v) if isinstance(v, dict)
+                else gather_dims(v, (0,)).unbind(0) for k, v in tree.items()}
 
     def take(tree, l):
         return {k: take(v, l) if isinstance(v, dict) else v[l]
@@ -233,51 +298,118 @@ def _auto_attention_variant(B: int, S: int, cfg: GPTConfig,
     return "flash" if flash else "dense"
 
 
-def _attention_fn(cfg: GPTConfig, B: int, S: int, device: torch.device):
+def _ring_attention_bnsh(mesh):
+    """Causal ring attention over ``mesh``'s sp dim for head-major q, k, v
+    (the reference's spec on [B, S, N, H]: batch over dp and fsdp,
+    sequence over sp, heads over tp)."""
+    spec = P(("dp", "fsdp"), "sp", "tp", None)
+    ring = shard_map(functools.partial(ring_attention_sharded,
+                                       axis_name="sp"),
+                     mesh, (spec, spec, spec), spec)
+
+    def attn(q, k, v):
+        o = ring(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+        # shard_map gathers the sequence back: whole, as the projections
+        # take it.
+        return o.contiguous() if isinstance(q, DTensor) else o.full_tensor()
+
+    attn.on_mesh = True
+    return attn
+
+
+def _attention_fn(cfg, B: int, S: int, device: torch.device, mesh=None):
+    """The head-major attention of a config (GPT's or LLaMA's)."""
     attention = cfg.attention
     if attention == "auto":
         attention = _auto_attention_variant(B, S, cfg, device)
+    if attention == "ring" and mesh is not None:
+        return _ring_attention_bnsh(mesh)
     if attention == "flash":
         return _flash_causal_attention_bnsh
-    if attention == "dense":
+    if attention in ("dense", "ring"):
         return _dense_causal_attention_bnsh
-    if attention == "ring":
-        raise NotImplementedError("ring attention needs the parallel layer, "
-                                  "which is not ported yet")
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
-def _mlp(cfg: GPTConfig, p: Params, x):
+def _attend(attn_fn, q, k, v, dims=(0, 1)):
+    """``attn_fn(q, k, v)`` on [B, N, S, H].  DTensors go per rank through
+    the function on whole sequences (``per_rank``): the ``dims`` (batch
+    and heads) stay split as q's are, so the flash op and the dense path
+    see plain local tensors.  A function that maps itself over the mesh
+    (ring) takes the DTensors as they are."""
+    if getattr(attn_fn, "on_mesh", False):
+        return attn_fn(q, k, v)
+    return per_rank(attn_fn, q, k, v, dims=dims)
+
+
+def _no_constraint(x, logical_axes):
+    return x
+
+
+def _constraint(rules: Optional[LogicalAxisRules]) -> Callable:
+    """``lc(x, logical_axes)``: the reference's logical constraint under
+    ``rules``.  Its "seq" -> sp splits no DTensor (sp is mapped by hand,
+    ``parallel.mesh.MANUAL_AXES``): activations stay whole along the
+    sequence outside ring attention, and sp ranks repeat the projections,
+    with the same results."""
+    if rules is None:
+        return _no_constraint
+
+    def lc(x, logical_axes):
+        return with_logical_constraint(x, rules, logical_axes)
+    return lc
+
+
+def _mlp(cfg: GPTConfig, p: Params, x, lc: Callable = _no_constraint):
     dt = cfg.dtype
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     h = torch.matmul(h, p["mlp"]["wi"].to(dt)) + p["mlp"]["bi"].to(dt)
+    h = lc(h, ("batch", "seq", "mlp"))
     h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default
     h = torch.matmul(h, p["mlp"]["wo"].to(dt)) + p["mlp"]["bo"].to(dt)
     return x + h
 
 
 def _qkv_bnsh(cfg: GPTConfig, p: Params, x):
-    """ln1 then the fused qkv projection, as a [B, 3, N, S, H] view whose
-    head dim is contiguous (what the flash kernel reads in place)."""
+    """ln1 then the qkv projection: q, k, v [B, N, S, H], views of one
+    fused product whose head dim is contiguous (what the flash kernel
+    reads in place).  On DTensors each of q, k, v is its own product, so
+    the heads' split over tp stays on the leading dim of what each
+    product's output unflattens to."""
     B, S, D = x.shape
     h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
     w = p["attn"]["wqkv"].to(cfg.dtype)                   # [D, 3, N, H]
+    if isinstance(w, DTensor):
+        return tuple(torch.matmul(h, wc.reshape(D, -1))
+                     .view(B, S, *wc.shape[1:]).transpose(1, 2)
+                     for wc in w.unbind(1))
     qkv = torch.matmul(h, w.reshape(D, -1)).view(B, S, *w.shape[1:])
-    return qkv.permute(0, 2, 3, 1, 4)
+    return qkv.permute(0, 2, 3, 1, 4).unbind(1)
 
 
-def _block(cfg: GPTConfig, attn_fn, x, p: Params):
-    """One transformer block (the reference's head-major branch).  Every
+def _block(cfg: GPTConfig, rules: Optional[LogicalAxisRules], attn_fn, x,
+           p: Params):
+    """One transformer block (the reference's head-major branch), with the
+    reference's logical constraints under ``rules``.  Returns (x, the MoE
+    load-balance loss of this layer, or None for a dense FFN).  Every
     projection is a 2-d matmul (``aten.mm``), which the ``dots`` remat
-    policy saves."""
+    policy saves; the MoE's einsums have batch dims (``aten.bmm``) and are
+    recomputed, as ``dots_with_no_batch_dims_saveable`` does."""
     dt = cfg.dtype
-    qkv = _qkv_bnsh(cfg, p, x)
-    o = attn_fn(qkv[:, 0], qkv[:, 1], qkv[:, 2])           # [B, N, S, H]
+    lc = _constraint(rules)
+    q, k, v = (lc(t, ("batch", "heads", "seq", "kv"))
+               for t in _qkv_bnsh(cfg, p, x))
+    o = _attend(attn_fn, q, k, v)                          # [B, N, S, H]
     B, N, S, H = o.shape
     o = torch.matmul(o.transpose(1, 2).reshape(B, S, N * H),
                      p["attn"]["wo"].to(dt).reshape(N * H, -1))
-    x = x + o + p["attn"]["bo"].to(dt)
-    return _mlp(cfg, p, x)
+    x = lc(x + o + p["attn"]["bo"].to(dt), ("batch", "seq", "embed"))
+    if not cfg.num_experts:
+        return lc(_mlp(cfg, p, x, lc), ("batch", "seq", "embed")), None
+    h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
+    h, aux = moe_mlp(h, p["mlp"], top_k=cfg.expert_top_k,
+                     capacity_factor=cfg.capacity_factor, lc=lc)
+    return lc(x + h, ("batch", "seq", "embed")), aux
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -337,48 +469,102 @@ def _embed(params: Params, cfg: GPTConfig, tokens, pos):
     return params["wte"][tokens].to(dt) + params["wpe"][pos].to(dt)
 
 
-def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig
+def shard_tokens(tokens, params: Params,
+                 rules: Optional[LogicalAxisRules] = None):
+    """Tokens [B, ...] as the params' mesh takes them: when the params are
+    DTensors and ``tokens`` is a plain tensor that every rank holds whole,
+    a DTensor of it with the batch split as ``rules`` say ("batch"), each
+    rank keeping its own rows; replicated without rules.  Anything else is
+    returned as it is."""
+    like = next(_leaves(params))
+    if not isinstance(like, DTensor) or isinstance(tokens, DTensor):
+        return tokens
+    mesh = like.device_mesh
+    placements = (logical_sharding(mesh, rules, ("batch",)) if rules
+                  else [Replicate()] * mesh.ndim)
+    return local_to_dtensor(tokens.to(like.device), mesh, placements)
+
+
+def _embedding(tokens, table):
+    """The rows of ``table`` [V, D] at ``tokens``; a DTensor table is
+    gathered whole first, so the lookup keeps the tokens' split."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
+
+
+def _aux_total(auxes: List[torch.Tensor], x) -> torch.Tensor:
+    """The layers' summed MoE losses; a zero (on x's mesh when x is a
+    DTensor) for a dense FFN."""
+    if auxes:
+        return functools.reduce(torch.add, auxes)
+    zero = torch.zeros((), device=x.device)
+    if isinstance(x, DTensor):
+        return DTensor.from_local(zero, x.device_mesh,
+                                  [Replicate()] * x.device_mesh.ndim,
+                                  run_check=False)
+    return zero
+
+
+def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
+               rules: Optional[LogicalAxisRules] = None, mesh=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden [B, S, D] after ln_f in the compute
-    dtype, moe aux loss 0.0).  Differentiable; when autograd records (grad
-    enabled and a param requires grad) and ``cfg.remat``, each block runs
-    under non-reentrant ``torch.utils.checkpoint`` with the policy's
-    selective-checkpoint context."""
+    dtype, the MoE load-balance loss summed over the layers: 0.0 for a
+    dense FFN).  Differentiable; when autograd records (grad enabled and a
+    param requires grad) and ``cfg.remat``, each block runs under
+    non-reentrant ``torch.utils.checkpoint`` with the policy's
+    selective-checkpoint context.  Sharded params take ``rules`` (the
+    logical constraints) and ``mesh`` (ring attention's)."""
     B, S = tokens.shape
     if S > cfg.max_seq_len:
         raise ValueError(f"sequence {S} exceeds max_seq_len "
                          f"{cfg.max_seq_len}")
-    attn_fn = _attention_fn(cfg, B, S, tokens.device)
-    block = _remat(cfg, functools.partial(_block, cfg, attn_fn), attn_fn,
-                   params)
-    pos = torch.arange(S, device=tokens.device)
-    x = _embed(params, cfg, tokens, pos[None])
+    tokens = shard_tokens(tokens, params, rules)
+    attn_fn = _attention_fn(cfg, B, S, tokens.device, mesh)
+    block = _remat(cfg, functools.partial(_block, cfg, rules, attn_fn),
+                   attn_fn, params)
+    dt = cfg.dtype
+    x = _embedding(tokens, params["wte"]).to(dt) \
+        + params["wpe"][:S].to(dt)[None]
+    x = _constraint(rules)(x, ("batch", "seq", "embed"))
+    auxes = []
     for p in _layers(params, cfg.num_layers):
-        x = block(x, p)
+        x, aux = block(x, p)
+        if aux is not None:
+            auxes.append(aux)
     x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
-    return x, torch.zeros((), device=tokens.device)
+    return x, _aux_total(auxes, x)
 
 
 def gpt_forward_with_aux(params: Params, tokens: torch.Tensor,
-                         cfg: GPTConfig, keep_dtype: bool = False
+                         cfg: GPTConfig,
+                         rules: Optional[LogicalAxisRules] = None,
+                         mesh=None, keep_dtype: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], moe aux loss 0.0).  The logits
+    """tokens [B, S] -> (logits [B, S, V], MoE aux loss).  The logits
     are computed in the compute dtype and upcast to f32 unless
     ``keep_dtype`` (the loss upcasts inside its reductions)."""
-    x, aux = gpt_hidden(params, tokens, cfg)
+    x, aux = gpt_hidden(params, tokens, cfg, rules, mesh)
     logits = torch.matmul(x, params["wte"].to(cfg.dtype).t())
     return (logits if keep_dtype else logits.float()), aux
 
 
-def gpt_forward(params: Params, tokens: torch.Tensor,
-                cfg: GPTConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (f32)."""
-    return gpt_forward_with_aux(params, tokens, cfg)[0]
+def gpt_forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
+                rules: Optional[LogicalAxisRules] = None,
+                mesh=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (f32); see
+    ``gpt_forward_with_aux`` for the MoE aux loss."""
+    return gpt_forward_with_aux(params, tokens, cfg, rules, mesh)[0]
 
 
 def token_loglikes(logits: torch.Tensor, targets: torch.Tensor
                    ) -> torch.Tensor:
-    """ll_i = logit[target_i] - logsumexp_i, in f32."""
+    """ll_i = logit[target_i] - logsumexp_i, in f32.  DTensor logits are
+    taken per rank on whole rows of the vocabulary."""
+    if isinstance(logits, DTensor):
+        return per_rank(token_loglikes, logits, targets)
     m = logits.amax(dim=-1, keepdim=True).detach()
     z = (logits - m).float()
     lse = torch.log(torch.exp(z).sum(dim=-1)) + m[..., 0].float()
@@ -419,28 +605,35 @@ def blocked_ce_loglike_sum(x: torch.Tensor, head: torch.Tensor,
             raise ValueError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)
         return _chunk_loglike_sum(x, head, targets, head_layout)
-    total = torch.zeros((), device=x.device)
+    total = None
     for xc, tc in zip(x.split(block, dim=1), targets.split(block, dim=1)):
-        total = total + checkpoint(_chunk_loglike_sum, xc, head, tc,
-                                   head_layout, use_reentrant=False)
+        ll = checkpoint(_chunk_loglike_sum, xc, head, tc, head_layout,
+                        use_reentrant=False)
+        total = ll if total is None else total + ll
     return total
 
 
 def gpt_loss(params: Params, batch: Dict[str, torch.Tensor],
-             cfg: GPTConfig) -> torch.Tensor:
-    """Next-token cross-entropy, f32 scalar.  ``batch``: {"tokens": [B,
-    S+1]}.  With ``cfg.ce_block`` the head and CE run blocked
-    (``blocked_ce_loglike_sum``); otherwise over the full logits, kept in
-    the compute dtype and upcast only inside ``token_loglikes``."""
-    toks = batch["tokens"]
+             cfg: GPTConfig, rules: Optional[LogicalAxisRules] = None,
+             mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy, f32 scalar, plus ``cfg.moe_aux_coef``
+    times the MoE load-balance loss when the FFN has experts.  ``batch``:
+    {"tokens": [B, S+1]}.  With ``cfg.ce_block`` the head and CE run
+    blocked (``blocked_ce_loglike_sum``); otherwise over the full logits,
+    kept in the compute dtype and upcast only inside ``token_loglikes``."""
+    toks = shard_tokens(batch["tokens"], params, rules)
     inputs, targets = toks[:, :-1], toks[:, 1:]
     if cfg.ce_block:
-        x, _ = gpt_hidden(params, inputs, cfg)
+        x, aux = gpt_hidden(params, inputs, cfg, rules, mesh)
         ll = blocked_ce_loglike_sum(x, params["wte"].to(cfg.dtype), targets,
                                     cfg.ce_block, "vd")
-        return -ll / targets.numel()
-    logits, _ = gpt_forward_with_aux(params, inputs, cfg, keep_dtype=True)
-    return -token_loglikes(logits, targets).mean()
+        loss = -ll / targets.numel()
+    else:
+        logits, aux = gpt_forward_with_aux(params, inputs, cfg, rules, mesh,
+                                           keep_dtype=True)
+        loss = -token_loglikes(logits, targets).mean()
+    # A dense FFN's aux is zero, and the reference's sum then adds nothing.
+    return loss + cfg.moe_aux_coef * aux if cfg.num_experts else loss
 
 
 # ------------------------------------------------------------ train step
@@ -471,29 +664,59 @@ def _adamw_state(params: Params, learning_rate: float, weight_decay: float
                                      weight_decay=weight_decay)
 
 
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over all grads (``optax.global_norm``); DTensor grads by
+    their per-tensor norms over the mesh."""
+    if not any(isinstance(g, DTensor) for g in grads):
+        return torch.nn.utils.get_total_norm(grads)
+    norms = [g.norm() for g in grads]
+    return torch.stack([n.full_tensor() if isinstance(n, DTensor) else n
+                        for n in norms]).norm()
+
+
+def _place_grads(leaves: List[torch.Tensor]) -> None:
+    """Give each DTensor param's grad the param's own placements: the
+    reduction of a data-parallel gradient (all-reduce over a replicated
+    dim, reduce-scatter over a sharded one), as XLA emits it."""
+    for p in leaves:
+        g = p.grad
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+                p.placements):
+            p.grad = g.redistribute(p.device_mesh, p.placements)
+
+
 def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer,
-                    loss_fn: Optional[Callable] = None
+                    loss_fn: Optional[Callable] = None,
+                    rules: Optional[LogicalAxisRules] = None, mesh=None
                     ) -> Callable[[Params, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """``step(params, batch) -> {"loss", "grad_norm"}``: one AdamW step of
-    ``loss_fn(params, batch)`` (``gpt_loss`` when None), updating
-    ``params`` (the tensors ``optimizer`` holds) in place.  ``grad_norm``
-    is the global L2 norm of the gradients, not clipped
-    (``optax.global_norm``).  The metrics stay on the device."""
+    ``loss_fn(params, batch)`` (``gpt_loss`` under ``rules`` and ``mesh``
+    when None), updating ``params`` (the tensors ``optimizer`` holds) in
+    place.  ``grad_norm`` is the global L2 norm of the gradients, not
+    clipped (``optax.global_norm``).  Sharded params (DTensors) get their
+    grads reduced to their own placements before the update; the
+    metrics are then whole tensors.  The metrics stay on the device."""
     if loss_fn is None:
         def loss_fn(params, batch):
-            return gpt_loss(params, batch, cfg)
+            return gpt_loss(params, batch, cfg, rules, mesh)
 
     def step(params: Params, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
-        tokens = batch["tokens"].to(params["wte"].device)
+        tokens = batch["tokens"]
+        if not isinstance(tokens, DTensor):
+            tokens = tokens.to(params["wte"].device)
         loss = loss_fn(params, {"tokens": tokens})
         loss.backward()
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in _leaves(params)])
+        leaves = list(_leaves(params))
+        _place_grads(leaves)
+        grad_norm = _global_norm([p.grad for p in leaves])
         optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        loss = loss.detach()
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        return {"loss": loss, "grad_norm": grad_norm}
 
     return step
 
@@ -504,7 +727,16 @@ def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer,
 # paged pools of ops/paged_attention.py instead of re-running the prefix.
 # The math mirrors _block exactly, so with cfg.dtype=float32 the paged
 # greedy decode reproduces gpt_forward's argmax token for token.  The pools
-# are updated in place; the functions still return them.
+# are updated in place; the functions still return them.  Serving keeps
+# the dense FFN, as the reference's does: an MoE config raises.
+
+
+def _require_dense(cfg: GPTConfig) -> None:
+    if cfg.num_experts:
+        raise ValueError(
+            f"the paged serving path runs GPT's dense FFN only, as the "
+            f"reference's does; this config has num_experts="
+            f"{cfg.num_experts}")
 
 
 def init_paged_cache(cfg: GPTConfig, num_pages: int, page_size: int,
@@ -512,7 +744,9 @@ def init_paged_cache(cfg: GPTConfig, num_pages: int, page_size: int,
                      device: DeviceLike = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed per-layer K/V page pools, [L, N, P, page, H].  Page 0 is the
-    scratch sink for padded and inactive writes."""
+    scratch sink for padded and inactive writes.  Raises for an MoE config:
+    serving runs the dense FFN only."""
+    _require_dense(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, cfg.num_heads, num_pages, page_size,
              cfg.head_dim)
@@ -533,6 +767,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     ``length`` the true length (1 <= length <= S), ``page_table`` [1,
     maxp].  Padding positions write scratch page 0 and, being causal,
     never influence positions < length."""
+    _require_dense(cfg)
     B, S = tokens.shape
     length = int(length)
     if not 1 <= length <= S:
@@ -542,8 +777,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
         x = _embed(params, cfg, tokens,
                    torch.arange(S, device=tokens.device)[None])
         for l, p in enumerate(_layers(params, cfg.num_layers)):
-            qkv = _qkv_bnsh(cfg, p, x)
-            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [B, N, S, H]
+            q, k, v = _qkv_bnsh(cfg, p, x)                  # [B, N, S, H]
             prefill_kv(k_pages[l], v_pages[l], k[0], v[0], length,
                        page_table[0])
             o = _dense_causal_attention_bnsh(q, k, v)
@@ -567,6 +801,7 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, token: torch.Tensor,
     ``pos`` then attends positions [0, pos].  Inactive slots (pos 0,
     all-zero table row) churn scratch page 0.  Returns (next-token logits
     [B, V] f32, k_pages, v_pages)."""
+    _require_dense(cfg)
     dt = cfg.dtype
     with torch.inference_mode():
         x = _embed(params, cfg, token, pos)

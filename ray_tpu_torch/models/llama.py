@@ -17,6 +17,10 @@ n reads KV head ``n // rep``) and materialised, as the reference's
 ``jnp.repeat``; the dense path groups the query heads instead, so K/V stay
 at ``num_kv_heads`` width.  The paged pools are ``[L, NKV, P, page, H]``
 and hold keys after RoPE.
+
+Sharded, as GPT (``llama_param_axes``, the reference's constraint points
+under ``rules``); the grouped dense path keeps only the batch sharded for
+its attention, so query heads and their KV heads stay together.
 """
 
 from __future__ import annotations
@@ -30,12 +34,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate
+
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt as _gpt
-from ray_tpu_torch.models.gpt import (Params, _attention_fn,
+from ray_tpu_torch.models.gpt import (Params, _attend, _attention_fn,
+                                      _constraint, _embedding,
                                       _dense_causal_attention_bnsh, _layers,
-                                      _normal_sampler, _remat,
-                                      blocked_ce_loglike_sum, token_loglikes)
+                                      _no_constraint, _normal_sampler,
+                                      _remat, blocked_ce_loglike_sum,
+                                      shard_tokens, token_loglikes)
+from ray_tpu_torch.parallel.sharding import LogicalAxisRules
 from ray_tpu_torch.ops.paged_attention import (append_kv, paged_attention,
                                                prefill_kv)
 
@@ -127,6 +136,29 @@ def llama_init(seed_or_generator: Union[int, torch.Generator],
     }
 
 
+def llama_param_axes(cfg: LlamaConfig) -> Params:
+    """Logical-axis annotations matching ``llama_init`` (same rule table
+    as GPT: heads/mlp -> tp, embed -> fsdp, layers -> pp)."""
+    return {
+        "wte": (None, "embed"),
+        "layers": {
+            "ln1": {"scale": ("layers", "norm")},
+            "attn": {
+                "wq": ("layers", "embed", "heads", "kv"),
+                "wkv": ("layers", "embed", None, "heads", "kv"),
+                "wo": ("layers", "heads", "kv", "embed"),
+            },
+            "ln2": {"scale": ("layers", "norm")},
+            "mlp": {
+                "wgu": ("layers", None, "embed", "mlp"),
+                "wd": ("layers", "mlp", "embed"),
+            },
+        },
+        "ln_f": {"scale": ("norm",)},
+        "lm_head": ("embed", None),
+    }
+
+
 def _rms_norm(x, scale, eps: float):
     x32 = x.float()
     y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
@@ -184,7 +216,13 @@ def _qkv(cfg: LlamaConfig, p: Params, x):
                     cfg.head_dim)
     h = _rms_norm(x, p["ln1"]["scale"], cfg.rms_eps)
     q = torch.matmul(h, p["attn"]["wq"].to(dt).reshape(D, N * H))
-    kv = torch.matmul(h, p["attn"]["wkv"].to(dt).reshape(D, 2 * NKV * H))
+    wkv = p["attn"]["wkv"].to(dt)
+    if isinstance(wkv, DTensor):
+        # k and v as their own products (see gpt._qkv_bnsh)
+        k, v = (torch.matmul(h, w.reshape(D, NKV * H)).unflatten(-1, (NKV, H))
+                for w in wkv.unbind(1))
+        return q.unflatten(-1, (N, H)), k, v
+    kv = torch.matmul(h, wkv.reshape(D, 2 * NKV * H))
     kv = kv.unflatten(-1, (2, NKV, H))
     return q.unflatten(-1, (N, H)), kv[..., 0, :, :], kv[..., 1, :, :]
 
@@ -196,12 +234,13 @@ def _attn_out(cfg: LlamaConfig, p: Params, x, o):
     return x + torch.matmul(o.reshape(*o.shape[:-2], N * H), wo)
 
 
-def _mlp(cfg: LlamaConfig, p: Params, x):
+def _mlp(cfg: LlamaConfig, p: Params, x, lc=_no_constraint):
     """x plus ln2 and the SwiGLU MLP, gate and up as two products."""
     dt = cfg.dtype
     h = _rms_norm(x, p["ln2"]["scale"], cfg.rms_eps)
     w_gate, w_up = p["mlp"]["wgu"].to(dt).unbind(0)
     h = F.silu(torch.matmul(h, w_gate)) * torch.matmul(h, w_up)
+    h = lc(h, ("batch", "seq", "mlp"))
     return x + torch.matmul(h, p["mlp"]["wd"].to(dt))
 
 
@@ -212,57 +251,72 @@ def _qkv_bnsh(cfg: LlamaConfig, p: Params, x, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _block(cfg: LlamaConfig, attn_fn, cos, sin, x, p: Params):
+def _block(cfg: LlamaConfig, rules: Optional[LogicalAxisRules], attn_fn,
+           cos, sin, x, p: Params):
+    lc = _constraint(rules)
     rep = cfg.num_heads // cfg.num_kv_heads
     q, k, v = _qkv_bnsh(cfg, p, x, cos, sin)
     if rep > 1 and attn_fn is _dense_causal_attention_bnsh:
-        o = _dense_causal_attention_gqa(q, k, v, rep)
+        o = _attend(functools.partial(_dense_causal_attention_gqa, rep=rep),
+                    q, k, v, dims=(0,))
     else:
         if rep > 1:   # the flash kernels take equal head counts
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
-        o = attn_fn(q, k, v)
-    x = _attn_out(cfg, p, x, o.transpose(1, 2))
-    return _mlp(cfg, p, x)
+        q, k, v = (lc(t, ("batch", "heads", "seq", "kv")) for t in (q, k, v))
+        o = _attend(attn_fn, q, k, v)
+    x = lc(_attn_out(cfg, p, x, o.transpose(1, 2)), ("batch", "seq", "embed"))
+    return lc(_mlp(cfg, p, x, lc), ("batch", "seq", "embed"))
 
 
-def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
+def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                 rules: Optional[LogicalAxisRules] = None, mesh=None
                  ) -> torch.Tensor:
     """tokens [B, S] -> final hidden [B, S, D] after the last RMSNorm, in
     the compute dtype: the trunk without the LM head.  Differentiable,
-    with per-block remat as ``gpt_hidden``."""
+    with per-block remat and sharded params as ``gpt_hidden``.  The
+    reference's LLaMA has no ring attention: "ring" is dense here too."""
     B, S = tokens.shape
+    tokens = shard_tokens(tokens, params, rules)
     attn_fn = _attention_fn(cfg, B, S, tokens.device)
     cos, sin = rope_tables(S, cfg.head_dim, cfg.rope_theta, tokens.device)
-    block = _remat(cfg, functools.partial(_block, cfg, attn_fn, cos, sin),
-                   attn_fn, params)
-    x = params["wte"][tokens].to(cfg.dtype)
+    if isinstance(tokens, DTensor):
+        # the tables as replicated DTensors on the tokens' mesh
+        on = tokens.device_mesh
+        cos, sin = (DTensor.from_local(t, on, [Replicate()] * on.ndim,
+                                       run_check=False) for t in (cos, sin))
+    block = _remat(cfg, functools.partial(_block, cfg, rules, attn_fn, cos,
+                                          sin), attn_fn, params)
+    x = _embedding(tokens, params["wte"]).to(cfg.dtype)
+    x = _constraint(rules)(x, ("batch", "seq", "embed"))
     for p in _layers(params, cfg.num_layers):
         x = block(x, p)
     return _rms_norm(x, params["ln_f"]["scale"], cfg.rms_eps)
 
 
-def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
+def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                  rules: Optional[LogicalAxisRules] = None, mesh=None
                   ) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in the compute dtype (as the
     reference's; the loss upcasts inside its reductions)."""
-    x = llama_hidden(params, tokens, cfg)
+    x = llama_hidden(params, tokens, cfg, rules, mesh)
     return torch.matmul(x, params["lm_head"].to(cfg.dtype))
 
 
 def llama_loss(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: LlamaConfig) -> torch.Tensor:
+               cfg: LlamaConfig, rules: Optional[LogicalAxisRules] = None,
+               mesh=None) -> torch.Tensor:
     """Next-token cross-entropy over {"tokens": [B, S+1]}, f32 scalar:
     blocked over the untied ``[D, V]`` head (``"dv"``) with
     ``cfg.ce_block``, else over the full logits."""
-    toks = batch["tokens"]
+    toks = shard_tokens(batch["tokens"], params, rules)
     inputs, targets = toks[:, :-1], toks[:, 1:]
     if cfg.ce_block:
-        x = llama_hidden(params, inputs, cfg)
+        x = llama_hidden(params, inputs, cfg, rules, mesh)
         ll = blocked_ce_loglike_sum(x, params["lm_head"].to(cfg.dtype),
                                     targets, cfg.ce_block, "dv")
         return -ll / targets.numel()
-    return -token_loglikes(llama_forward(params, inputs, cfg),
+    return -token_loglikes(llama_forward(params, inputs, cfg, rules, mesh),
                            targets).mean()
 
 
@@ -276,11 +330,13 @@ def make_train_state(seed_or_generator: Union[int, torch.Generator],
                              learning_rate, weight_decay)
 
 
-def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer):
+def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
+                    rules: Optional[LogicalAxisRules] = None, mesh=None):
     """``step(params, batch) -> {"loss", "grad_norm"}``: GPT's train step
     (``models.gpt.make_train_step``) with this family's loss."""
     return _gpt.make_train_step(
-        cfg, optimizer, loss_fn=lambda p, b: llama_loss(p, b, cfg))
+        cfg, optimizer,
+        loss_fn=lambda p, b: llama_loss(p, b, cfg, rules, mesh))
 
 
 # --------------------------------------------------------- paged decode

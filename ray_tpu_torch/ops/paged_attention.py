@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ray_tpu_torch.parallel.sharding import P, shard_map
+
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, lengths: torch.Tensor,
@@ -103,3 +105,26 @@ def prefill_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
     k_pages[:, pid, slot] = k_seq.to(k_pages.dtype)
     v_pages[:, pid, slot] = v_seq.to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def sharded_paged_attention(mesh, *, model_axis: str = "model",
+                            sm_scale: Optional[float] = None):
+    """GQA paged attention mapped over KV heads: q splits its head dim and
+    the pools their leading KV-head dim over ``model_axis``, lengths and
+    page tables are replicated, so each rank decodes its own head groups
+    with no collective (each output head needs only its KV head group).
+    Returns ``(q, k_pages, v_pages, lengths, page_table) -> o``, o a
+    DTensor split on heads."""
+    in_specs = (
+        P(None, model_axis, None),         # q [B, N, H]
+        P(model_axis, None, None, None),   # k_pages [NKV, P, page, H]
+        P(model_axis, None, None, None),   # v_pages
+        P(),                               # lengths
+        P(),                               # page_table
+    )
+
+    def paged(q, k_pages, v_pages, lengths, page_table):
+        return paged_attention(q, k_pages, v_pages, lengths, page_table,
+                               sm_scale=sm_scale)
+
+    return shard_map(paged, mesh, in_specs, P(None, model_axis, None))

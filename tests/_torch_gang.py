@@ -1,0 +1,346 @@
+"""Rank functions for the port's multi-rank CPU tests (gloo gangs).
+
+``ray_tpu_torch.parallel.gang.run_gang`` starts each gang in fresh
+processes, which import this module to find the function: so it imports
+torch and the port only, never JAX (the tests compare what rank 0 returns
+with the JAX package in the pytest process).  Each function builds its
+meshes with ``device_type="cpu"`` and returns numpy arrays and numbers.
+"""
+
+import os
+import tempfile
+
+import torch
+from torch.distributed.tensor import DTensor
+
+from ray_tpu_torch.parallel import (LogicalAxisRules, MeshSpec, P,
+                                    all_gather, all_reduce, all_to_all,
+                                    barrier_sum, init_sharded, make_mesh,
+                                    ppermute_ring, psum_scatter, shard_map,
+                                    shard_params, with_logical_constraint)
+from ray_tpu_torch.parallel.sharding import placements_for
+
+CPU = "cpu"
+
+
+def _np(x):
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.detach().numpy()
+
+
+# ------------------------------------------------------------ parallel
+
+def parallel_world8(rank, world, paged):
+    """tests/test_torch_parallel.py on 8 ranks."""
+    out = {}
+    mesh = MeshSpec(dp=2, fsdp=2, tp=2).build(CPU)
+    out["names"] = tuple(mesh.mesh_dim_names)
+    out["sizes"] = {n: mesh.size(i) for i, n in enumerate(out["names"])}
+    try:
+        MeshSpec(dp=16).build(CPU)
+    except ValueError as e:
+        out["too_small"] = str(e)
+
+    xm = make_mesh({"x": 8}, CPU)
+    x = torch.arange(8.0)
+    spec = (P("x"),)
+    for op in ("sum", "mean", "max", "min"):
+        out[f"all_reduce_{op}"] = _np(shard_map(
+            lambda v, op=op: all_reduce(v, "x", op), xm, spec, P("x"))(x))
+    out["all_gather"] = _np(shard_map(lambda v: all_gather(v, "x"), xm,
+                                      spec, P(None))(x))
+    out["ppermute"] = _np(shard_map(lambda v: ppermute_ring(v, "x"), xm,
+                                    spec, P("x"))(x))
+    out["barrier"] = int(shard_map(lambda v: v + barrier_sum("x"), xm, spec,
+                                   P("x"))(x.int()).full_tensor().sum())
+    # ppermute's gradient is the inverse rotation of the cotangent.
+    xg = torch.arange(8.0, requires_grad=True)
+    w = torch.arange(8.0) ** 2
+    y = shard_map(lambda v: ppermute_ring(v, "x", shift=3), xm, spec,
+                  P("x"))(xg)
+    (y.full_tensor() * w).sum().backward()
+    out["ppermute_value"], out["ppermute_grad"] = _np(y), _np(xg.grad)
+
+    # shard_params / init_sharded on tp=2 x fsdp=4
+    spec2 = MeshSpec(tp=2, fsdp=4)
+    mesh2 = spec2.build(CPU)
+    rules = LogicalAxisRules.for_transformer(spec2)
+    ann = {"w": ("embed", "mlp"), "b": ("mlp",)}
+
+    def init():
+        return {"w": torch.arange(128.0).reshape(8, 16),
+                "b": torch.ones(16)}
+
+    a = init_sharded(init, mesh2, rules, ann)
+    b = shard_params(init(), mesh2, rules, ann)
+    out["w_local"] = tuple(b["w"].to_local().shape)
+    out["b_local"] = tuple(b["b"].to_local().shape)
+    out["same_placements"] = (a["w"].placements == b["w"].placements
+                              and a["b"].placements == b["b"].placements)
+    out["init_sharded_w"], out["shard_params_w"] = _np(a["w"]), _np(b["w"])
+    # A constraint redistributes a DTensor (embed -> fsdp is taken by
+    # batch here) and passes a plain tensor through.
+    act = with_logical_constraint(
+        b["w"], rules, ("batch", "mlp"))
+    out["constraint_local"] = tuple(act.to_local().shape)
+    out["constraint_value"] = _np(act)
+    plain = torch.ones(3)
+    out["plain_passes"] = with_logical_constraint(
+        plain, rules, ("batch",)) is plain
+    try:
+        placements_for(mesh2, P(("tp", "fsdp")))
+    except ValueError as e:
+        out["order"] = str(e)
+
+    # GQA paged attention split over KV heads, no collective.
+    from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   sharded_paged_attention)
+    pm = make_mesh({"model": 8}, CPU)
+    args = [torch.from_numpy(a) for a in paged]
+    fn = sharded_paged_attention(pm, model_axis="model")
+    out["paged"] = _np(fn(*args))
+    out["paged_plain"] = _np(paged_attention(*args))
+    return out if rank == 0 else None
+
+
+def parallel_world4(rank, world, y):
+    """The 4-rank checks of tests/test_parallel.py."""
+    xm = make_mesh({"x": 4}, CPU)
+    x = torch.arange(16.0).reshape(4, 4)        # each rank holds a row
+    out = {"psum_scatter": _np(shard_map(
+        lambda v: psum_scatter(v[0], "x")[None], xm, (P("x"),), P("x"))(x))}
+    yt = torch.from_numpy(y)
+
+    def roundtrip(v):
+        t = all_to_all(v, "x", split_axis=1, concat_axis=0)
+        return all_to_all(t, "x", split_axis=0, concat_axis=1)
+
+    out["all_to_all"] = _np(shard_map(roundtrip, xm, (P("x"),), P("x"))(yt))
+
+    # Gradients through each differentiable collective: the loss weighs
+    # the output's elements by (index)^2.
+    for name, fn in (
+            ("psum_scatter", lambda v: psum_scatter(v[0], "x")[None]),
+            ("all_gather", lambda v: all_gather(v[0], "x")[None]),
+            ("all_to_all", lambda v: all_to_all(v, "x", 1, 0)),
+            ("all_reduce", lambda v: all_reduce(v, "x"))):
+        xg = torch.arange(16.0).reshape(4, 4).requires_grad_(True)
+        y = shard_map(fn, xm, (P("x"),), P("x"))(xg).full_tensor()
+        w = (torch.arange(float(y.numel())) ** 2).reshape(y.shape)
+        (y * w).sum().backward()
+        out[f"{name}_grad"] = xg.grad.numpy()
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------ ring attention
+
+def _ring(q, k, v, mesh, grad=False):
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    q, k, v = (torch.from_numpy(a).requires_grad_(grad) for a in (q, k, v))
+    o = ring_attention(q, k, v, mesh)
+    if not grad:
+        return _np(o)
+    o.full_tensor().sum().backward()
+    return _np(o), q.grad.numpy()
+
+
+def ring_world8(rank, world, sp8, dp2sp4):
+    out = {"sp8": _ring(*sp8, MeshSpec(sp=8).build(CPU)),
+           "dp2_sp4": _ring(*dp2sp4, MeshSpec(dp=2, sp=4).build(CPU))}
+    return out if rank == 0 else None
+
+
+def ring_world4(rank, world, grads, ulysses, sp1):
+    from ray_tpu_torch.ops.ring_attention import (make_ring_attention_fn,
+                                                  ulysses_attention)
+    out = {}
+    out["grads_out"], out["grads_q"] = _ring(*grads, MeshSpec(sp=4).build(
+        CPU), grad=True)
+    um = make_mesh({"sp": 4}, CPU)
+    spec = P(None, "sp", None, None)
+    q, k, v = (torch.from_numpy(a) for a in ulysses)
+    out["ulysses"] = _np(shard_map(ulysses_attention, um,
+                                   (spec, spec, spec), spec)(q, k, v))
+    # sp = 1: one causal block, no ring step; make_ring_attention_fn
+    # refuses the mesh
+    dp4 = MeshSpec(dp=4).build(CPU)
+    out["sp1"] = _ring(*sp1, dp4)
+    try:
+        make_ring_attention_fn(dp4)
+    except ValueError as e:
+        out["sp1_refused"] = str(e)
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------------------ MoE
+
+def _moe_gpt_cfg(**kw):
+    from ray_tpu_torch.models import GPTConfig
+    base = dict(vocab_size=128, max_seq_len=32, num_layers=2, num_heads=2,
+                embed_dim=32, dtype=torch.float32, num_experts=4,
+                expert_top_k=2)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def moe_world8(rank, world, tree, tokens, x, p):
+    """dp=2 x ep=4: MoE GPT's forward sharded, moe_mlp in GSPMD mode on
+    that mesh, and moe_mlp in ep_axis mode under shard_map."""
+    from ray_tpu_torch.models import params_from_jax
+    from ray_tpu_torch.models.gpt import gpt_forward_with_aux, gpt_param_axes
+    from ray_tpu_torch.ops.moe import moe_mlp
+    from ray_tpu_torch.parallel.sharding import local_to_dtensor
+    from ray_tpu_torch.parallel.mesh import active_mesh
+    from ray_tpu_torch.parallel.sharding import logical_sharding
+
+    out = {}
+    cfg = _moe_gpt_cfg()
+    spec = MeshSpec(dp=2, ep=4)
+    mesh = spec.build(CPU)
+    rules = LogicalAxisRules.for_transformer(spec)
+    params = shard_params(params_from_jax(tree, cfg, device=CPU), mesh,
+                          rules, gpt_param_axes(cfg))
+    logits, aux = gpt_forward_with_aux(params, torch.from_numpy(tokens), cfg,
+                                       rules)
+    out["logits"], out["aux"] = _np(logits), float(_np(aux))
+
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    xt = torch.from_numpy(x)
+    act = active_mesh(mesh)
+    axes = {"router": ("embed", None), "wi": ("expert", "embed", "mlp"),
+            "bi": ("expert", "mlp"), "wo": ("expert", "mlp", "embed"),
+            "bo": ("expert", "embed")}
+    ps = shard_params(pt, mesh, rules, axes)
+    xs = local_to_dtensor(xt, act, logical_sharding(
+        act, rules, ("batch", "seq", "embed")))
+
+    def lc(a, ax):
+        return with_logical_constraint(a, rules, ax)
+
+    y, aux = moe_mlp(xs, ps, top_k=2, capacity_factor=1.25, lc=lc)
+    out["gspmd_y"], out["gspmd_aux"] = _np(y), float(_np(aux))
+
+    def ep_mode(x, router, wi, bi, wo, bo):
+        return moe_mlp(x, {"router": router, "wi": wi, "bi": bi, "wo": wo,
+                           "bo": bo}, top_k=2, capacity_factor=1.25,
+                       ep_axis="ep")
+
+    rep, exp = P(), P("ep")
+    y, aux = shard_map(ep_mode, mesh, (rep, rep, exp, exp, exp, exp),
+                       (P(), P()))(xt, pt["router"], pt["wi"], pt["bi"],
+                                   pt["wo"], pt["bo"])
+    out["ep_y"], out["ep_aux"] = _np(y), float(_np(aux))
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------- sharded models
+
+def _train(make_state, step_fn, cfg, axes, spec, tokens, steps,
+           optimizer):
+    """Losses of ``steps`` steps from the params ``make_state()`` returns,
+    sharded over ``spec`` (or not, for None)."""
+    params = make_state()
+    rules = mesh = None
+    if spec is not None:
+        mesh = spec.build(CPU)
+        rules = LogicalAxisRules.for_transformer(spec)
+        params = shard_params(params, mesh, rules, axes(cfg))
+    from ray_tpu_torch.models.gpt import _leaves
+    leaves = [q.requires_grad_(True) for q in _leaves(params)]
+    step = step_fn(cfg, optimizer(leaves), rules=rules, mesh=mesh)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    return [float(step(params, batch)["loss"]) for _ in range(steps)]
+
+
+def models_world8(rank, world, gpt_tree, llama_tree, batch8, batch8_7,
+                  batch4, ring_qkv):
+    from ray_tpu_torch.autotune import dispatch
+    from ray_tpu_torch.models import (GPTConfig, LlamaConfig,
+                                      params_from_jax)
+    from ray_tpu_torch.models.gpt import gpt_init, gpt_param_axes
+    from ray_tpu_torch.models.gpt import make_train_step as gpt_step
+    from ray_tpu_torch.models.llama import (llama_init, llama_param_axes,
+                                            make_train_step as llama_step)
+
+    tiny = dict(vocab_size=128, max_seq_len=32, num_layers=2,
+                dtype=torch.float32)
+    gcfg = GPTConfig(num_heads=2, embed_dim=16, **tiny)
+    lcfg = LlamaConfig(num_heads=4, num_kv_heads=2, embed_dim=16,
+                       mlp_dim=48, **tiny)
+
+    def adam(leaves):
+        return torch.optim.Adam(leaves, lr=1e-2)
+
+    def sgd(leaves):
+        return torch.optim.SGD(leaves, lr=1e-2)
+
+    out = {"gpt_decreases": {}, "llama_decreases": {}}
+    for name, spec in (("dp8", MeshSpec(dp=8)), ("fsdp8", MeshSpec(fsdp=8)),
+                       ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)),
+                       ("fsdp2_sp2_tp2", MeshSpec(fsdp=2, sp=2, tp=2))):
+        out["gpt_decreases"][name] = _train(
+            lambda: gpt_init(0, gcfg, device=CPU), gpt_step, gcfg,
+            gpt_param_axes, spec, batch8, 5, adam)
+    for name, spec in (("dp8", MeshSpec(dp=8)),
+                       ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2))):
+        out["llama_decreases"][name] = _train(
+            lambda: llama_init(0, lcfg, device=CPU), llama_step, lcfg,
+            llama_param_axes, spec, batch8, 5, adam)
+
+    # Same weights (the JAX init), same batch, two SGD steps: sharded
+    # against one device.
+    for fam, cfg, tree, axes, step in (
+            ("gpt", gcfg, gpt_tree, gpt_param_axes, gpt_step),
+            ("llama", lcfg, llama_tree, llama_param_axes, llama_step)):
+        out[f"{fam}_match"] = {
+            name: _train(lambda: params_from_jax(tree, cfg, device=CPU),
+                         step, cfg, axes, spec, batch8_7, 2, sgd)[-1]
+            for name, spec in (("single", None), ("dp8", MeshSpec(dp=8)),
+                               ("tp2_fsdp4", MeshSpec(tp=2, fsdp=4)))}
+
+    # The flash op on a mesh, under remat "dots" and the blocked head.
+    fcfg = GPTConfig(num_heads=2, embed_dim=16, attention="flash",
+                     remat=True, remat_policy="dots", ce_block=8, **tiny)
+    out["flash_match"] = {
+        name: _train(lambda: params_from_jax(gpt_tree, fcfg, device=CPU),
+                     gpt_step, fcfg, gpt_param_axes, spec, batch8_7, 2,
+                     sgd)[-1]
+        for name, spec in (("single", None),
+                           ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)))}
+
+    rcfg = GPTConfig(num_heads=2, embed_dim=16, attention="ring", **tiny)
+    out["ring_trains"] = _train(
+        lambda: gpt_init(0, rcfg, device=CPU), gpt_step, rcfg,
+        gpt_param_axes, MeshSpec(fsdp=2, sp=2, tp=2), batch4, 4, adam)
+
+    # The dispatcher's ring variant (mirrors tests/test_autotune.py:272).
+    mesh = MeshSpec(dp=2, sp=4).build(CPU)
+    q, k, v = (torch.from_numpy(a) for a in ring_qkv)
+    out["dispatch_ring"] = _np(dispatch.attention(q, k, v, causal=True,
+                                                  variant="ring", mesh=mesh))
+    kd = {"B": 2, "S": 32, "N": 2, "H": 8, "dtype": "float32",
+          "causal": True}
+    out["ring_applicable"] = dispatch.applicable_variants(
+        kd, torch.device(CPU), mesh)
+    os.environ["RT_AUTOTUNE_CACHE"] = os.path.join(
+        tempfile.mkdtemp(prefix="rt_gang_cache_"), "autotune.jsonl")
+    rec = dispatch.tune_attention(2, 32, 2, 8, "float32", device=CPU,
+                                  mesh=mesh, variants=("ring", "dense"))
+    out["ring_tuned"] = sorted(rec["meta"]["timings"])
+    return out if rank == 0 else None
+
+
+def fail_on_rank_1(rank, world):
+    if rank == 1:
+        raise ValueError("rank 1 fails")
+    torch.distributed.barrier()         # the others wait for rank 1
+    return rank
+
+
+def hang(rank, world):
+    torch.distributed.barrier()
+    if rank == 1:
+        import time
+        time.sleep(600)                 # a rank that never finishes
+    return rank

@@ -328,12 +328,18 @@ def test_candidate_that_raises_fails_the_sweep(cache_file):
 
 
 def test_ring_raises_until_the_parallel_slice(cache_file):
+    """The ring variant came with the parallel slice: without a mesh it
+    raises, as the reference's ring_build does (the ring itself is held
+    to dense attention in test_torch_sharded_models.py)."""
     q, k, v = _t(_qkv(4))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="mesh"):
         dispatch.attention(q, k, v, variant="ring")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="mesh"):
         search.tune("ring_attention",
                     attention_key(1, 32, 2, 8, "float32", True), device=CPU)
+    assert "ring" not in dispatch.applicable_variants(
+        search.parse_key(attention_key(1, 32, 2, 8, "float32", True)),
+        torch.device(CPU))
 
 
 def test_entry_points_want_the_card_unless_told(cache_file, monkeypatch):

@@ -113,8 +113,16 @@ def test_init_layout_and_seed():
     gen = torch.Generator().manual_seed(7)
     torch.testing.assert_close(gpt_init(gen, cfg, device=CPU)["wte"],
                                a["wte"], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        gpt_init(0, dataclasses.replace(cfg, num_experts=4), device=CPU)
+    # MoE: the expert tree of the reference (router [L,D,E], experts on a
+    # leading E dim); serving keeps the dense FFN and refuses it.
+    moe_cfg = dataclasses.replace(cfg, num_experts=4)
+    moe = gpt_init(0, moe_cfg, device=CPU)
+    want = param_shapes(moe_cfg)["layers"]["mlp"]
+    assert {k: tuple(v.shape) for k, v in moe["layers"]["mlp"].items()} == {
+        "router": (2, 32, 4), "wi": (2, 4, 32, 128), "bi": (2, 4, 128),
+        "wo": (2, 4, 128, 32), "bo": (2, 4, 32)} == want
+    with pytest.raises(ValueError, match="dense FFN"):
+        init_paged_cache(moe_cfg, 4, 8, device=CPU)
 
 
 def test_params_from_jax_rejects_mismatched_trees():
@@ -132,8 +140,10 @@ def test_attention_choices():
     _, cfg = _configs("ring")
     p = gpt_init(0, cfg, device=CPU)
     toks = torch.from_numpy(_tokens(B=1, S=8))
-    with pytest.raises(NotImplementedError, match="ring"):
-        gpt_forward(p, toks, cfg)
+    # "ring" without a mesh is dense attention, as in the reference.
+    dense = gpt_forward(p, toks, dataclasses.replace(cfg, attention="dense"))
+    torch.testing.assert_close(gpt_forward(p, toks, cfg), dense, rtol=0,
+                               atol=0)
     with pytest.raises(ValueError, match="unknown attention"):
         gpt_forward(p, toks, dataclasses.replace(cfg, attention="nope"))
     # "auto" on the CPU is dense (flash applies on a device at S >= 1024).

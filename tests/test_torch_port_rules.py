@@ -9,6 +9,7 @@
 
 import ast
 import asyncio
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -21,12 +22,15 @@ FORBIDDEN = {"jax", "jaxlib", "ray_tpu"}
 
 
 def _port_files():
-    # The kernel tests run on the card, which has no JAX, so they too.
+    # The kernel tests run on the card, which has no JAX, so they too; and
+    # the gang ranks of the multi-rank tests import _torch_gang.py alone.
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_flash_kernel.py",
         ROOT / "tests" / "test_torch_flash_bwd_kernel.py",
         ROOT / "tests" / "test_torch_splash_kernel.py",
-        ROOT / "tests" / "test_torch_llama_kernel.py"]
+        ROOT / "tests" / "test_torch_llama_kernel.py",
+        ROOT / "tests" / "test_torch_moe_kernel.py",
+        ROOT / "tests" / "_torch_gang.py"]
     assert len(files) > 10
     return files
 
@@ -68,12 +72,15 @@ AUTOTUNE_HANDLERS = {"search.py": ["torch.cuda.OutOfMemoryError"],
 
 
 def test_kernel_and_model_modules_catch_nothing():
-    """A try/except around a launch is how a quiet fallback would look."""
+    """A try/except around a launch or a collective is how a quiet
+    fallback would look."""
     offenders = []
-    for sub in ("ops", "models"):
+    for sub in ("ops", "models", "parallel"):
         for path in sorted((PORT / sub).rglob("*.py")):
             offenders += [f"{path.name}:{line}"
                           for line, _ in _handlers(path)]
+    offenders += [f"dryrun.py:{line}"
+                  for line, _ in _handlers(PORT / "dryrun.py")]
     assert not offenders, offenders
 
 
@@ -95,6 +102,8 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_a_card(no_card):
     from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.dryrun import dryrun_multichip
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
     from ray_tpu_torch.models import (GPTConfig, LlamaConfig, gpt_init,
                                       init_paged_cache, llama_init,
                                       llama_init_paged_cache, mlp_init,
@@ -117,7 +126,13 @@ def test_entry_points_raise_without_a_card(no_card):
                                                       max_new_tokens=8)),
                  lambda: InferenceEngine(EngineConfig(model="llama",
                                                       max_prompt_len=8,
-                                                      max_new_tokens=8))):
+                                                      max_new_tokens=8)),
+                 lambda: MeshSpec().build(),
+                 lambda: MeshSpec(dp=2, tp=2).build(),
+                 lambda: make_mesh({"x": 2}),
+                 lambda: gpt_init(0, dataclasses.replace(cfg,
+                                                         num_experts=4)),
+                 lambda: dryrun_multichip(2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -131,6 +146,10 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     cfg = GPTConfig.tiny(vocab=32, seq=16)
     params = gpt_init(0, cfg, device="cpu")
     logits = gpt_forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+    assert logits.shape == (1, 4, 32) and torch.isfinite(logits).all()
+    moe = dataclasses.replace(cfg, num_experts=4)
+    logits = gpt_forward(gpt_init(0, moe, device="cpu"),
+                         torch.zeros((1, 4), dtype=torch.long), moe)
     assert logits.shape == (1, 4, 32) and torch.isfinite(logits).all()
 
     async def run():
