@@ -47,9 +47,22 @@ Every phase prints one JSON line and any failure exits nonzero:
            (d) flash launches of one step under the
            remat policies full, attn, attn_dots; (c) bench.py's
            configuration (B=32, S=1024, bf16, remat "dots", ce_block 256,
-           AdamW 3e-4 b2 0.95 wd 1e-4): 2 warm and 10 timed steps on one
+           AdamW 3e-4 b2 0.95 wd 1e-4): 1 warm and 8 timed steps on one
            batch, loss finite and falling, exact launches per step, ms per
            step, samples/s, tokens/s, MFU; (e) a profile of one step
+  top1_trained  the bf16 top-1 check on trained weights: GPT-2-small (the
+           train phase's configuration) trained 300 AdamW steps (1e-3
+           after 30 warmup steps) at [8, 1024] on the bytes of the
+           repository's *.md files (the first 90%), then on 8 held-out
+           windows of the last 10%: the f32 forward's cross-entropy
+           beside two context-free baselines (unigram and bigram byte
+           frequencies of the training part), bf16 top-1 agreement of
+           flash with dense and of each with the f32 dense forward,
+           beside the forward phase's figures on random weights, and the
+           share of positions whose top-2 gap is under the bf16 logit
+           error; "c1_closed" when flash and dense agree on 99% and the
+           held-out loss is 0.3 nats under the bigram's; flash no further
+           from f32 than dense less half a point
   llama_forward, llama_serve, llama_train_check, llama_train
            the same four phases (and their profiles) on LLaMA-125M (12
            layers, 12 query and 4 KV heads of 64, SwiGLU 2048, vocab 32000,
@@ -76,6 +89,18 @@ Every phase prints one JSON line and any failure exits nonzero:
            collective once, ring attention at sp=1 on [4,12,1024,64] bf16
            against plain causal attention, make_ring_attention_fn refusing
            sp=1
+  pipeline  the pipeline (parallel/pipeline.py) in the same one-rank NCCL
+           world (pp = 1: every microbatch through the one stage): an f32
+           rehearsal of GPipe and 1F1B against gpt_loss at a small config
+           (loss 1e-5 relative, grad leaves 1e-4 of their max); then
+           GPT-2-small bf16 flash, full remat in the stages, the
+           full-logit head, [32, 1024] in 8 microbatches of 4: the
+           unpipelined, GPipe and 1F1B steps from one init, their first
+           loss and grad norm within DIST_RTOL of the unpipelined step's
+           and each grad leaf within PIPE_LEAF_RTOL (relative distance),
+           exact launches (24/12/12 and 192/96/96 a step), ms per step
+           (each of 4 timed steps), tokens/s and peak memory, and each
+           step's device time by kind of kernel and idle share
   kernel_splash  the three splash kernels (forward; dq; dk and dv) against
            their plain versions run in f32: Llama 2 7B's attention
            [2,32,4096,128] bf16 causal at 128-blocks, [1,2,256,*] with
@@ -103,10 +128,10 @@ Every phase prints one JSON line and any failure exits nonzero:
            the main paths (forward and serve for the forward kernel, the
            timed training steps for the flash kernels, the autotune path
            for the splash kernels; the flash entries also each family's
-           inference and training launches, MoE GPT's training among
-           them), its error and its bf16 design ("wgmma+tma" or
-           "mma.sync"); all but the flash forward's entry
-           also their achieved TFLOP/s and the share of their bound they
+           inference and training launches, MoE GPT's training and the
+           pipeline's two schedules among them), its error and its bf16
+           design ("wgmma+tma" or "mma.sync"); all but the flash forward's
+           entry also their achieved TFLOP/s and the share of their bound they
            reach (the flash forward's under "train_call" and at the
            inference call); the flash backward's library time is SDPA's
            backward by device time, its event time beside it; the
@@ -121,6 +146,7 @@ script exits nonzero before printing any result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,8 +259,14 @@ def family(cfg) -> Family:
                   m.make_train_step, m.gpt_decode_step, m.init_paged_cache)
 
 
+_T0 = time.monotonic()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.monotonic() - _T0, 1)}),
+          flush=True)
 
 
 def check(cond, msg: str):
@@ -531,7 +563,8 @@ def phase_forward(dev, cfg, params, B, S, windows_n=5, per_window=4):
     check(out["bf16_top1_flash_vs_f32"] >=
           out["bf16_top1_dense_vs_f32"] - 0.005,
           "bf16 flash top-1 is further from the f32 forward than dense's")
-    return {"launches_per_forward": per_fwd, "ms": ms}
+    return {"launches_per_forward": per_fwd, "ms": ms,
+            **{k: v for k, v in out.items() if k.startswith("bf16_top1")}}
 
 
 PROFILER_SESSIONS = 3
@@ -564,6 +597,22 @@ def profiled(fn, iters, activities, want=None):
     return kernels, wall
 
 
+def kernel_breakdown(kernels, iters):
+    """From ``profiled``'s (device us, name) over ``iters`` calls: (the
+    kernels as (ms per call, name), largest first; their sum; the flash
+    kernels' ms by name; ms by kind, ``KERNEL_CLASSES``)."""
+    kernels = sorted(((us / 1e3 / iters, k) for us, k in kernels),
+                     reverse=True)
+    flash = {name: sum(ms for ms, k in kernels if name in k)
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    by_class = {}
+    for ms, k in kernels:
+        cls = next((c for c, words in KERNEL_CLASSES
+                    if any(w in k for w in words)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    return kernels, sum(ms for ms, _ in kernels), flash, by_class
+
+
 def profile_window(phase, fn, dev, iters=3, top=8):
     """Where one call of ``fn`` spends its time on the card: device time
     by kernel (torch.profiler, CUPTI) against the wall clock of the same
@@ -575,16 +624,7 @@ def profile_window(phase, fn, dev, iters=3, top=8):
     if not any(us > 0 for us, _ in kernels):
         emit(phase, wall_ms_per_call=wall, device_trace="missing")
         return
-    kernels = sorted(((us / 1e3 / iters, k) for us, k in kernels),
-                     reverse=True)
-    busy = sum(ms for ms, _ in kernels)
-    flash = {name: sum(ms for ms, k in kernels if name in k)
-             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    by_class = {}
-    for ms, k in kernels:
-        cls = next((c for c, words in KERNEL_CLASSES
-                    if any(w in k for w in words)), "other")
-        by_class[cls] = by_class.get(cls, 0.0) + ms
+    kernels, busy, flash, by_class = kernel_breakdown(kernels, iters)
     emit(phase, wall_ms_per_call=wall, device_busy_ms_per_call=busy,
          device_idle_share=1 - busy / wall,
          flash_ms_per_call=sum(flash.values()),
@@ -722,6 +762,12 @@ def _cosine(a, b):
     return float(torch.dot(a, b) / (a.norm() * b.norm()))
 
 
+def _grad_errs(got, want):
+    """Per leaf, max |got - want| over max |want|."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+
+
 def _rel_dist(a, b):
     """||a - b|| / ||b||: unlike the cosine, it sees a wrong scale."""
     a, b = a.double(), b.double()
@@ -782,7 +828,7 @@ def moe_routing_stats(params, tokens, cfg):
             [1.0 - k / r for k, r in zip(kept, routed)])
 
 
-def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
+def phase_train(dev, cfg, B, S, check_B=2, warm=1, steps=8):
     """Training at full width (GPT or LLaMA, by ``cfg``; phases
     ``train_check``, ``train``, ``train_profile``, with ``llama_`` before
     LLaMA's); see the module docstring.  ``cfg`` is the training
@@ -814,8 +860,7 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
     loss_f, g_flash = _loss_and_grads(params, check_tokens, c32)
     loss_d, g_dense32 = _loss_and_grads(
         params, check_tokens, dataclasses.replace(c32, attention="dense"))
-    ratios = [float((a - b).abs().max()) / float(b.abs().max())
-              for a, b in zip(g_flash, g_dense32)]
+    ratios = _grad_errs(g_flash, g_dense32)
     del g_flash
     worst = max(range(len(ratios)), key=ratios.__getitem__)
     loss_rel = abs(loss_f - loss_d) / abs(loss_d)
@@ -928,7 +973,7 @@ def phase_train(dev, cfg, B, S, check_B=2, warm=2, steps=10):
           f"training launches {launches}, expected {per_step} per step")
     if dev.type == "cuda":
         profile_window(fam.prefix + "train_profile",
-                       lambda: step(params, batch), dev, iters=2)
+                       lambda: step(params, batch), dev, iters=1)
     return {"launches": launches, "per_step": per_step, "ms": ms}
 
 
@@ -1450,12 +1495,8 @@ def phase_dist_single(dev, cfg, B=8, S=1024, ring_shape=(4, 1024, 12, 64)):
     from ray_tpu_torch.models.gpt import gpt_param_axes
 
     fam = family(cfg)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     cuda = dev.type == "cuda"          # gloo and "cpu" only to rehearse
-    dist.init_process_group("nccl" if cuda else "gloo",
-                            store=dist.FileStore(os.path.join(tmp, "store"),
-                                                 1), rank=0, world_size=1)
-    try:
+    with one_rank_world(dev):
         spec = MeshSpec()
         mesh = spec.build() if cuda else spec.build("cpu")
         check(mesh.device_type == dev.type and
@@ -1532,7 +1573,7 @@ def phase_dist_single(dev, cfg, B=8, S=1024, ring_shape=(4, 1024, 12, 64)):
              ring_sp1_max_abs_err=ring_err,
              dense_bf16_max_abs_err=dense_err, rel_mult=REL_MULT,
              ring_fn_refuses_sp1=refused,
-             card=nvidia_smi_line())
+             card=nvidia_smi_line() if cuda else None)
         check(loss_rel <= DIST_RTOL and norm_rel <= DIST_RTOL,
               f"sharded step {l1}, {n1} against unsharded {l0}, {n0}")
         want = (2 * L, L, L, 0, 0, 0)
@@ -1544,9 +1585,335 @@ def phase_dist_single(dev, cfg, B=8, S=1024, ring_shape=(4, 1024, 12, 64)):
               f"ring attention at sp=1 off by {ring_err}, bf16 dense by "
               f"{dense_err}")
         check(refused, "make_ring_attention_fn took a mesh with sp=1")
+
+
+@contextlib.contextmanager
+def one_rank_world(dev):
+    """A one-rank process group (NCCL on the card, gloo on the CPU) from a
+    FileStore in a temporary directory, destroyed at the end."""
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1), rank=0, world_size=1)
+    try:
+        yield
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Per-leaf gradient bound of the pipeline's full-width check: each leaf's
+# ||g - g0|| / ||g0|| against the unpipelined step's first gradients, the
+# same bf16 model with the batch's sums in another order (set from the
+# readings on the card, see PERF.md).
+PIPE_LEAF_RTOL = 1e-2
+
+
+def phase_pipeline(dev, cfg, B=32, S=1024, M=8, steps=4, small=None):
+    """The pipeline (``parallel/pipeline.py``) in a one-rank world on the
+    card: ``MeshSpec().build()`` on cuda, so pp = 1 and both schedules run
+    all M microbatches through the one stage.  (a) An f32 rehearsal at the
+    ``small`` config: ``gpt_loss_pipelined`` and ``gpt_loss_1f1b`` against
+    ``gpt_loss``, loss within 1e-5 relative, each grad leaf within 1e-4 of
+    its max |grad|.  (b) ``cfg`` (GPT-2-small, bf16, flash, full remat,
+    the full-logit head) at [B, S]: the unpipelined step, the GPipe step
+    and the 1F1B step (M microbatches) from the same init, each with its
+    own AdamW (3e-4, b2 0.95, wd 1e-4): the first step's loss and grad
+    norm of each schedule within DIST_RTOL of the unpipelined one's, each
+    grad leaf of that step within PIPE_LEAF_RTOL (relative distance) of
+    the unpipelined one's, exact flash launches per step (each
+    microbatch: the forward, the backward's recompute, dq, dk/dv per
+    layer), then ``steps`` steps timed one by one: ms/step (mean, min,
+    max), tokens/s, peak memory; on the card the device time of one more step
+    (torch.profiler, kernels only) and the idle share of the timed step
+    it leaves.  The launch counts are set to 0 just before each
+    schedule's steps and read just after.  On the CPU (a
+    rehearsal at tiny configs) it runs over gloo and launches no
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from ray_tpu_torch.models.gpt import make_train_state, make_train_step
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.parallel import pipeline as pl
+
+    cuda = dev.type == "cuda"
+    small = small or small_gpt_config()
+    out = {}
+    with one_rank_world(dev):
+        mesh = MeshSpec().build() if cuda else MeshSpec().build("cpu")
+        check(mesh.device_type == dev.type, f"mesh {mesh} not on {dev}")
+
+        # (a) f32 rehearsal
+        params, _ = make_train_state(SEED, small, device=dev)
+        gen = torch.Generator().manual_seed(SEED + 3)
+        tokens = torch.randint(0, small.vocab_size, (8, small.max_seq_len
+                                                     + 1), generator=gen)
+        batch = {"tokens": tokens.to(dev)}
+        want = _loss_and_grads(params, batch["tokens"], small)
+        leaves = [p for _, p in named_leaves(params)]
+        rehearsal = {}
+        for name, fn in (("gpipe", pl.gpt_loss_pipelined),
+                         ("1f1b", pl.gpt_loss_1f1b)):
+            loss = fn(params, batch, small, mesh, num_microbatches=4)
+            loss.backward()
+            errs = _grad_errs([p.grad for p in leaves], want[1])
+            for p in leaves:
+                p.grad = None
+            rehearsal[name] = {
+                "loss_rel_diff": abs(float(loss) - want[0]) / abs(want[0]),
+                "worst_grad_err_over_max": max(errs)}
+        del params, leaves
+        out["f32_rehearsal"] = dict(rehearsal, config=dict(
+            layers=small.num_layers, heads=small.num_heads,
+            width=small.embed_dim, vocab=small.vocab_size,
+            batch=8, seq=small.max_seq_len, microbatches=4,
+            attention=small.attention))
+        for name, r in rehearsal.items():
+            check(r["loss_rel_diff"] <= 1e-5 and
+                  r["worst_grad_err_over_max"] <= 1e-4,
+                  f"f32 {name} rehearsal off gpt_loss: {r}")
+
+        # (b) GPT-2-small at [B, S]
+        L = cfg.num_layers if cuda else 0
+        gen = torch.Generator().manual_seed(SEED + 4)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                         generator=gen).to(dev)}
+        makers = {
+            "unpipelined": lambda opt: make_train_step(cfg, opt),
+            "gpipe": lambda opt: pl.make_pipeline_train_step(
+                cfg, opt, mesh, num_microbatches=M),
+            "1f1b": lambda opt: pl.make_1f1b_train_step(
+                cfg, opt, mesh, num_microbatches=M)}
+        want_launches = {"unpipelined": [2 * L, L, L, 0, 0, 0],
+                         "gpipe": [2 * M * L, M * L, M * L, 0, 0, 0],
+                         "1f1b": [2 * M * L, M * L, M * L, 0, 0, 0]}
+        runs, first_grads = {}, {}
+        for name, make in makers.items():
+            params, opt = make_train_state(SEED, cfg, learning_rate=3e-4,
+                                           weight_decay=1e-4, device=dev)
+            step = make(opt)
+            empty_cache(dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()             # this schedule's path starts
+            first = step(params, batch)
+            sync(dev)
+            first_launches = list(launch_counts())
+            # the first step's grads, kept on the host (off the peak)
+            leaf_names = [n for n, _ in named_leaves(params)]
+            first_grads[name] = [p.grad.detach().to("cpu")
+                                 for _, p in named_leaves(params)]
+            metrics, step_ms = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                metrics.append(step(params, batch))
+                sync(dev)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            secs = sum(step_ms) / 1e3
+            launches = launch_counts()        # ... and ends here
+            runs[name] = {
+                "loss": float(first["loss"]),
+                "grad_norm": float(first["grad_norm"]),
+                "losses": [float(first["loss"])] +
+                [float(m["loss"]) for m in metrics],
+                "ms_per_step": secs / steps * 1e3,
+                "ms_steps": step_ms,
+                "tokens_per_s": B * S * steps / secs,
+                "peak_memory_gb": (torch.cuda.max_memory_allocated(dev)
+                                   / 1e9 if cuda else None),
+                "launches_first_step": dict(zip(KERNEL_NAMES,
+                                                first_launches)),
+                "launches": list(launches)}
+            check(first_launches == want_launches[name] and
+                  list(launches) == [n * (steps + 1)
+                                     for n in want_launches[name]],
+                  f"{name}: launches {first_launches} in the first step, "
+                  f"{list(launches)} in all, expected "
+                  f"{want_launches[name]} a step")
+            if cuda:
+                # device time of one more step (kernels only: tracing the
+                # host's ops would slow the host-bound step it measures)
+                kernels, _ = profiled(lambda: step(params, batch), 1,
+                                      [ProfilerActivity.CUDA])
+                _, busy, flash, by_class = kernel_breakdown(kernels, 1)
+                runs[name].update(
+                    device_ms_per_step=busy,
+                    device_idle_share=1 - busy / runs[name]["ms_per_step"],
+                    flash_ms_per_step=flash, device_ms_by_class=by_class)
+            del params, opt, step, first, metrics
+            empty_cache(dev)
+        base = runs["unpipelined"]
+        for name in ("gpipe", "1f1b"):
+            r = runs[name]
+            r["loss_rel_diff"] = abs(r["loss"] - base["loss"]) / base["loss"]
+            r["grad_norm_rel_diff"] = (abs(r["grad_norm"] - base["grad_norm"])
+                                       / base["grad_norm"])
+            dists = [_rel_dist(g.to(dev), g0.to(dev)) for g, g0 in
+                     zip(first_grads[name], first_grads["unpipelined"])]
+            worst = max(range(len(dists)), key=dists.__getitem__)
+            r["grad_leaf_rel_dist_max"] = dists[worst]
+            r["grad_leaf_rel_dist_worst_leaf"] = leaf_names[worst]
+            r["grad_leaf_rel_dist_median"] = sorted(dists)[len(dists) // 2]
+        del first_grads
+        emit("pipeline", world_size=1, mesh=MeshSpec().axis_sizes,
+             batch=B, seq=S, microbatches=M, dtype=str(cfg.dtype),
+             attention=cfg.attention, remat="full (every block, a stage)",
+             head="full logits", timed_steps=steps, rtol=DIST_RTOL,
+             leaf_rtol=PIPE_LEAF_RTOL,
+             launches_per_step=want_launches, **out, **runs,
+             card=nvidia_smi_line() if cuda else None)
+        for name in ("gpipe", "1f1b"):
+            r = runs[name]
+            check(r["loss_rel_diff"] <= DIST_RTOL and
+                  r["grad_norm_rel_diff"] <= DIST_RTOL,
+                  f"{name} first step {r['loss']}, {r['grad_norm']} against "
+                  f"unpipelined {base['loss']}, {base['grad_norm']}")
+            check(r["grad_leaf_rel_dist_max"] <= PIPE_LEAF_RTOL,
+                  f"{name} first step: grad leaf "
+                  f"{r['grad_leaf_rel_dist_worst_leaf']} at relative "
+                  f"distance {r['grad_leaf_rel_dist_max']} from the "
+                  f"unpipelined step's")
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"{name} losses not finite: {r['losses']}")
+    return {name: {"launches": r["launches"], "per_step":
+                   want_launches[name]} for name, r in runs.items()}
+
+
+def small_gpt_config():
+    """The f32 rehearsal's config: 4 layers of 4 heads of 16, width 64,
+    vocab 256, seq 128, flash attention (its f32 kernels)."""
+    import torch
+    from ray_tpu_torch.models import GPTConfig
+    return GPTConfig(vocab_size=256, max_seq_len=128, num_layers=4,
+                     num_heads=4, embed_dim=64, dtype=torch.float32,
+                     attention="flash")
+
+
+def repo_text_bytes():
+    """The bytes of the repository's own ``*.md`` files beside this script,
+    in name order: text that needs no download."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    files = sorted(root.glob("*.md"))
+    check(files, f"no *.md files beside {__file__}")
+    return b"".join(f.read_bytes() for f in files), [f.name for f in files]
+
+
+def byte_baselines(train, targets_prev, targets):
+    """Held-out cross-entropy (nats a byte) of two models that read no
+    context beyond the current byte, fitted on ``train``: the unigram
+    frequencies (add-one) and the bigram frequencies P(next | current),
+    smoothed toward the unigram.  A transformer reaches the bigram level
+    without attention; only a loss below it shows attention at work."""
+    import torch
+    uni = (torch.bincount(train, minlength=256).double() + 1) / (
+        len(train) + 256)
+    pairs = torch.zeros(256, 256, dtype=torch.float64)
+    pairs.index_put_((train[:-1], train[1:]),
+                     torch.ones(len(train) - 1, dtype=torch.float64),
+                     accumulate=True)
+    bi = (pairs + uni[None]) / (pairs.sum(1, keepdim=True) + 1)
+    return (float(-uni[targets].log().mean()),
+            float(-bi[targets_prev, targets].log().mean()))
+
+
+# How far below the bigram baseline (nats a byte, held out) the trained
+# model's loss must be for its top-1 figures to count as trained weights.
+TOP1_BELOW_BIGRAM = 0.3
+
+
+def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
+                       eval_rows=8, lr=1e-3, warmup=30):
+    """The bf16 top-1 check on trained weights.  GPT-2-small (``cfg``, the
+    bf16 flash training configuration) trains ``steps`` AdamW steps at
+    [B, S] on byte tokens (ids < 256) of the first 90% of
+    ``repo_text_bytes()``, windows drawn from seed SEED + 5, learning rate
+    ``lr`` after a linear warmup.  Then, on ``eval_rows`` held-out windows
+    of the last 10%: the f32 forward's cross-entropy beside the unigram
+    and bigram baselines (``byte_baselines``), top-1 agreement of the
+    flash bf16 forward with the dense bf16 forward and of each with the
+    f32 dense forward, beside ``random_top1`` (the forward phase's figures
+    on random weights), and the share of positions whose f32 top-2 logit
+    gap is under the bf16 forwards' logit error (their max |bf16 - f32|
+    over the held-out logits).  ROADMAP C1 counts as closed when flash and
+    dense bf16 agree on 99% of the positions and the held-out loss is
+    ``TOP1_BELOW_BIGRAM`` under the bigram baseline.  The hard limit is
+    the forward phase's: flash bf16 no further from f32 than dense bf16,
+    less half a point.  Returns the phase's fields."""
+    import torch
+    fam = family(cfg)
+    text, names = repo_text_bytes()
+    data = torch.tensor(list(text), dtype=torch.long)
+    cut = int(len(data) * 0.9)
+    train, held = data[:cut], data[cut:]
+    check(len(held) >= eval_rows * S + 1 and len(train) > 8 * S,
+          f"{len(data)} bytes of text are too few for [{B}, {S}] windows")
+    params, opt = fam.train_state(SEED, cfg, learning_rate=lr,
+                                  weight_decay=0.0, device=dev)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda i: min(1.0, (i + 1) / warmup))
+    step = fam.train_step(cfg, opt)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        starts = torch.randint(0, len(train) - S - 1, (B,), generator=gen)
+        batch = {"tokens": torch.stack(
+            [train[j:j + S + 1] for j in starts.tolist()]).to(dev)}
+        m = step(params, batch)
+        sched.step()
+        if i % 50 == 0 or i == steps - 1:
+            losses.append(float(m["loss"]))
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    windows = torch.stack([held[i * S:(i + 1) * S + 1]
+                           for i in range(eval_rows)])
+    tokens, targets = windows[:, :-1].to(dev), windows[:, 1:]
+    with torch.no_grad():
+        logits = {name: fam.forward(params, tokens, dataclasses.replace(
+            cfg, dtype=dt, attention=att))
+            for name, dt, att in (("f32", torch.float32, "dense"),
+                                  ("flash", torch.bfloat16, "flash"),
+                                  ("dense", torch.bfloat16, "dense"))}
+    f32 = logits["f32"]
+    held_ce = float(torch.nn.functional.cross_entropy(
+        f32.float().flatten(0, 1), targets.flatten().to(dev)))
+    unigram_ce, bigram_ce = byte_baselines(train, windows[:, :-1].flatten(),
+                                           targets.flatten())
+    top = {k: v.argmax(-1) for k, v in logits.items()}
+    err = max(float((logits[k] - f32).abs().max())
+              for k in ("flash", "dense"))
+    top2 = f32.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    agree = {f"bf16_top1_{a}_vs_{b}": float((top[a] == top[b]).float()
+                                            .mean())
+             for a, b in (("flash", "dense"), ("flash", "f32"),
+                          ("dense", "f32"))}
+    trained = held_ce <= bigram_ce - TOP1_BELOW_BIGRAM
+    fields = dict(
+        texts=names, bytes_train=len(train), bytes_held_out=len(held),
+        batch=B, seq=S, steps=steps, learning_rate=lr, warmup_steps=warmup,
+        train_s=train_s, losses_every_50=losses,
+        held_out_positions=eval_rows * S, held_out_ce=held_ce,
+        unigram_ce=unigram_ce, bigram_ce=bigram_ce,
+        below_bigram_required=TOP1_BELOW_BIGRAM, trained=trained, **agree,
+        bf16_max_logit_err=err,
+        share_top2_gap_under_bf16_err=float((gap < err).float().mean()),
+        f32_top2_gap_p05=float(torch.quantile(gap.flatten().float(), 0.05)),
+        random_weights=random_top1, c1_closed=trained and agree[
+            "bf16_top1_flash_vs_dense"] >= 0.99,
+        card=nvidia_smi_line() if dev.type == "cuda" else None)
+    emit("top1_trained", **fields)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"byte training did not learn: {losses}")
+    check(agree["bf16_top1_flash_vs_f32"] >=
+          agree["bf16_top1_dense_vs_f32"] - 0.005,
+          "trained: bf16 flash top-1 further from the f32 forward than "
+          "dense's")
+    del params, opt, logits, f32
+    empty_cache(dev)
+    return fields
 
 
 # -------------------------------------------------------------------- main
@@ -1595,6 +1962,16 @@ def model_paths(dev, cfg, train_cfg, B=4, S=1024, train_B=32, serve=SERVE):
     return fwd, infer, train
 
 
+def pipeline_launches(pipe, i):
+    """Kernel ``i``'s launches on the pipeline's two schedules (their
+    timed path: the first step and the timed ones) and per step, for the
+    kernels line."""
+    return {f"launches_pipeline_{name}": pipe[name]["launches"][i]
+            for name in ("gpipe", "1f1b")} | {
+        f"launches_per_pipeline_{name}_step": pipe[name]["per_step"][i]
+        for name in ("gpipe", "1f1b")}
+
+
 def empty_cache(dev):
     import torch
     if dev.type == "cuda":
@@ -1628,6 +2005,9 @@ def run() -> int:
     cfg = GPTConfig.gpt2_small()
     fwd, infer_launches, train = model_paths(
         dev, cfg, dataclasses.replace(cfg, **train_kw))
+    phase_top1_trained(dev, dataclasses.replace(cfg, **train_kw),
+                       {k: v for k, v in fwd.items()
+                        if k.startswith("bf16_top1")})
     llama_fwd, llama_infer, llama_train = model_paths(
         dev, LlamaConfig.llama_125m(),
         LlamaConfig(max_seq_len=1024, **train_kw))
@@ -1645,6 +2025,12 @@ def run() -> int:
               f"kernel")
     phase_dist_single(dev, dataclasses.replace(cfg, **train_kw))
     empty_cache(dev)
+    # The pipeline at GPT-2-small: bf16 flash, full remat in the stages, the
+    # full-logit head, M = 8 microbatches of 4.
+    pipe = phase_pipeline(dev, dataclasses.replace(
+        cfg, attention="flash", remat=True, remat_policy="full"))
+    check(all(all(r["launches"][:3]) for r in pipe.values()),
+          "the pipeline path missed a kernel")
 
     reset_launch_counts()                     # the autotune path starts
     phase_autotune(dev, cfg)
@@ -1662,6 +2048,8 @@ def run() -> int:
     bwd_times = phase_kernel_bwd_times(dev, *TRAIN_CASE[1])
     splash_times = phase_splash_kernel_times(dev)
     phase_attention_shapes(dev)
+    pipe_launches = [pipe["gpipe"]["launches"][i] +
+                     pipe["1f1b"]["launches"][i] for i in range(3)]
     main_o, main_lse = errs[MAIN_CASE[0]]
     train_errs = bwd_errs[TRAIN_CASE[0]]
     splash_main = splash_errs[SPLASH_MAIN[0]]
@@ -1678,7 +2066,7 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:91",
          "launches": infer_launches[0] + train["launches"][0] +
          llama_infer[0] + llama_train["launches"][0] +
-         moe_train["launches"][0],
+         moe_train["launches"][0] + pipe_launches[0],
          "launches_inference": infer_launches[0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
@@ -1690,6 +2078,7 @@ def run() -> int:
          "launches_per_train_step": train["per_step"][0],
          "launches_per_llama_train_step": llama_train["per_step"][0],
          "launches_per_moe_train_step": moe_train["per_step"][0],
+         **pipeline_launches(pipe, 0),
          "max_abs_err": main_o, "lse_max_abs_err": main_lse,
          "train_call_max_abs_err": errs[TRAIN_CASE[0]][0],
          "train_call_lse_max_abs_err": errs[TRAIN_CASE[0]][1],
@@ -1698,7 +2087,7 @@ def run() -> int:
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1] + llama_train["launches"][1] +
-         moe_train["launches"][1],
+         moe_train["launches"][1] + pipe_launches[1],
          "launches_train": train["launches"][1],
          "launches_llama_train": llama_train["launches"][1],
          "launches_moe_train": moe_train["launches"][1],
@@ -1706,6 +2095,7 @@ def run() -> int:
          "launches_autotune": tune_launches[1],
          "launches_per_train_step": train["per_step"][1],
          "launches_per_moe_train_step": moe_train["per_step"][1],
+         **pipeline_launches(pipe, 1),
          "max_abs_err": train_errs["dq"],
          **bwd_times["dq"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dq"], "shape": list(TRAIN_CASE[1]),
@@ -1713,7 +2103,7 @@ def run() -> int:
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2] + llama_train["launches"][2] +
-         moe_train["launches"][2],
+         moe_train["launches"][2] + pipe_launches[2],
          "launches_train": train["launches"][2],
          "launches_llama_train": llama_train["launches"][2],
          "launches_moe_train": moe_train["launches"][2],
@@ -1721,6 +2111,7 @@ def run() -> int:
          "launches_autotune": tune_launches[2],
          "launches_per_train_step": train["per_step"][2],
          "launches_per_moe_train_step": moe_train["per_step"][2],
+         **pipeline_launches(pipe, 2),
          "max_abs_err": max(train_errs["dk"], train_errs["dv"]),
          **bwd_times["dkv"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dkv"], "shape": list(TRAIN_CASE[1]),

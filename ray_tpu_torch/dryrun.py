@@ -2,12 +2,13 @@
 
 The twin of ``dryrun_multichip`` in the repo's ``__graft_entry__.py``: the
 stages ``main`` (a GPT train step over dp/fsdp/pp/sp/tp, ring attention
-when sp > 1), ``moe`` (MoE GPT over ep=2) and ``multislice`` (the ranks
-split into two hosts, dp across them) each run as a gang of ``n`` ranks
-(``parallel.gang.run_gang``: fresh processes, a file-store rendezvous),
-one after another under one shared deadline, and print their loss line.
-The reference's ``pipeline`` stage waits for the port of
-``parallel/pipeline.py``, and its ``rl`` stage for the port of RLlib.
+when sp > 1), ``moe`` (MoE GPT over ep=2), ``multislice`` (the ranks
+split into two hosts, dp across them) and ``pipeline`` (the reference's
+``dryrun_pipeline``: GPipe and 1F1B train steps over pp) each run as a
+gang of ``n`` ranks (``parallel.gang.run_gang``: fresh processes, a
+file-store rendezvous), one after another under one shared deadline, and
+print their loss lines.  The reference's ``rl`` stage waits for the port
+of RLlib.
 
 ``device_type`` is ``"cuda"`` by default (NCCL, one card per rank: it
 raises without ``n`` cards); ``"cpu"`` runs gloo ranks on the CPU.
@@ -18,13 +19,13 @@ raises without ``n`` cards); ``"cpu"`` runs gloo ranks on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-WAITING = {"pipeline": "waits for the port of parallel/pipeline.py",
-           "rl": "waits for the port of RLlib"}
+WAITING = {"rl": "waits for the port of RLlib"}
 DEADLINE_S = 280.0
 
 
@@ -146,8 +147,75 @@ def _multislice_stage(rank: int, world: int, device_type: str) -> str:
             f"mesh={spec.axis_sizes} (dp crosses hosts) loss={loss:.4f}")
 
 
+def _pipeline_stage(rank: int, world: int, device_type: str) -> str:
+    """The reference's ``dryrun_pipeline``: one GPipe train step each of
+    dense and flash stages over pp=2 x dp, and of MoE stages over pp=2 x
+    ep=2 x dp (n % 4 == 0), each loss within 1e-3 of the unpipelined
+    loss; then a 1F1B step at M = 16 likewise, with the activation memory
+    of both schedules (``schedule_activation_bytes``).  One line each."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import (GPTConfig, _leaves, gpt_init,
+                                          gpt_loss)
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.parallel.pipeline import (make_1f1b_train_step,
+                                                 make_pipeline_train_step,
+                                                 schedule_activation_bytes)
+
+    dev = _device(device_type)
+    dense = GPTConfig(vocab_size=256, max_seq_len=64, num_layers=4,
+                      num_heads=4, embed_dim=64, dtype=torch.float32,
+                      attention="dense")
+    lines = []
+
+    def one(cfg, spec, tag, mbs=4, make_step=make_pipeline_train_step):
+        mesh = spec.build(device_type)
+        params = gpt_init(0, cfg, device=dev)
+        tokens = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (mbs * spec.batch_shard_size, 65))
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        with torch.no_grad():
+            ref = float(gpt_loss(params, batch, cfg))
+        step = make_step(cfg, _adamw(params), mesh, num_microbatches=mbs)
+        got = float(step(params, batch)["loss"])
+        if not abs(got - ref) < 1e-3:
+            raise RuntimeError(f"pipeline {tag}: loss {got} against the "
+                               f"unpipelined {ref}")
+        lines.append(f"pipeline dryrun[{tag}]: mesh={spec.axis_sizes} "
+                     f"M={mbs} loss={got:.4f} (matches reference "
+                     f"{ref:.4f})")
+        return mesh, batch
+
+    one(dense, MeshSpec(dp=world // 2, pp=2), "dense pp x dp")
+    one(dataclasses.replace(dense, attention="flash"),
+        MeshSpec(dp=world // 2, pp=2), "flash pp x dp")
+    if world % 4 == 0:
+        one(dataclasses.replace(dense, num_experts=4, expert_top_k=2),
+            MeshSpec(dp=world // 4, pp=2, ep=2), "moe pp x ep")
+    else:
+        lines.append("pipeline dryrun[moe pp x ep] SKIPPED (needs n % 4 "
+                     "== 0)")
+
+    # 1F1B: GPipe's numerics with O(pp) activation memory, measured on
+    # each schedule's forward at a microbatch count where it matters.
+    M = 16
+    spec = MeshSpec(dp=world // 2, pp=2)
+    mesh, batch = one(dense, spec, "1f1b pp x dp", mbs=M,
+                      make_step=make_1f1b_train_step)
+    params = gpt_init(0, dense, device=dev)
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    mem = schedule_activation_bytes(params, batch, dense, mesh,
+                                    num_microbatches=M)
+    lines[-1] += (f"; activation memory {mem['1f1b'] / 1e6:.2f}MB vs gpipe "
+                  f"{mem['gpipe'] / 1e6:.2f}MB "
+                  f"({mem['gpipe'] / max(mem['1f1b'], 1):.1f}x less)")
+    return "\n".join(lines)
+
+
 STAGES: Dict[str, Callable[[int, int, str], str]] = {
-    "main": _main_stage, "moe": _moe_stage, "multislice": _multislice_stage}
+    "main": _main_stage, "moe": _moe_stage, "multislice": _multislice_stage,
+    "pipeline": _pipeline_stage}
 
 
 def _skip_reason(name: str, n: int) -> Optional[str]:
@@ -155,6 +223,8 @@ def _skip_reason(name: str, n: int) -> Optional[str]:
         return f"n={n} odd; ep needs an even split"
     if name == "multislice" and (n < 4 or n % 2):
         return f"needs even n>=4, got {n}"
+    if name == "pipeline" and n % 2:
+        return f"n={n} odd; pp needs an even split"
     return None
 
 
@@ -180,7 +250,8 @@ def dryrun_multichip(n_devices: int, device_type: Optional[str] = None,
                            timeout_s=max(1.0, deadline - time.monotonic()),
                            backend=backend)
             lines[name] = out[0]
-        print(f"[{name}] {lines[name]}", flush=True)
+        for line in lines[name].splitlines():
+            print(f"[{name}] {line}", flush=True)
     for name, why in WAITING.items():
         print(f"[{name}] not run: {why}", flush=True)
     return lines

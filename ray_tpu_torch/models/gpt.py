@@ -268,14 +268,59 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     return (y * scale + bias).to(x.dtype)
 
 
-def _dense_causal_attention_bnsh(q, k, v):
-    """[B,N,S,H] (head-major) dense attention; causal mask, f32 softmax."""
-    S = q.shape[2]
-    scores = torch.einsum("bnqh,bnkh->bnqk", q, k) / math.sqrt(q.shape[-1])
+def _dense_attention_impl(q, k, v, rep: int):
+    """Causal dense attention on [B, N, S, H] (head-major), f32 softmax,
+    the math of both families' references: the N = G * rep query heads
+    share k/v [B, G, S, H], query head n reading KV head n // rep, in a
+    (group, rep) split, so K/V are never repeated.  GPT's (``rep`` 1)
+    scales the scores in the compute dtype, LLaMA's grouped path in f32."""
+    B, N, S, H = q.shape
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(mask[None, None], scores.float(), -1e30)
+    qg = q.reshape(B, N // rep, rep, S, H)
+    scores = torch.einsum("bgrqh,bgkh->bgrqk", qg, k)
+    scores = ((scores / math.sqrt(H)).float() if rep == 1
+              else scores.float() / math.sqrt(H))
+    scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bnqk,bnkh->bnqh", probs, v)
+    o = torch.einsum("bgrqk,bgkh->bgrqh", probs, v)
+    return o.reshape(B, N, S, H)
+
+
+# Dense attention as one registered op, as the flash forward is: a
+# selective-checkpoint policy can save only an op's output, and the
+# reference's "attn" policies save the attention output by name.
+_dense_attention_op = torch.library.custom_op(
+    "ray_tpu_torch::dense_attention", _dense_attention_impl,
+    mutates_args=(), schema="(Tensor q, Tensor k, Tensor v, int rep) -> "
+                            "Tensor")
+
+
+def _dense_setup_context(ctx, inputs, output):
+    q, k, v, rep = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.rep = rep
+
+
+def _dense_backward(ctx, do):
+    """The plain ops' gradients, from the probabilities recomputed from q,
+    k and v: the op keeps no [S, S] tensor between the passes."""
+    q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        o = _dense_attention_impl(q, k, v, ctx.rep)
+    return (*torch.autograd.grad(o, (q, k, v), do), None)
+
+
+torch.library.register_autograd("ray_tpu_torch::dense_attention",
+                                _dense_backward,
+                                setup_context=_dense_setup_context)
+
+DENSE_ATTENTION_OP = torch.ops.ray_tpu_torch.dense_attention.default
+
+
+def _dense_causal_attention_bnsh(q, k, v, rep: int = 1):
+    """[B,N,S,H] (head-major) dense attention; causal mask, f32 softmax
+    (``_dense_attention_impl``, through the registered op)."""
+    return _dense_attention_op(q, k, v, rep)
 
 
 def _flash_causal_attention_bnsh(q, k, v):
@@ -388,10 +433,12 @@ def _qkv_bnsh(cfg: GPTConfig, p: Params, x):
 
 
 def _block(cfg: GPTConfig, rules: Optional[LogicalAxisRules], attn_fn, x,
-           p: Params):
+           p: Params, moe_ep_axis: Optional[str] = None):
     """One transformer block (the reference's head-major branch), with the
     reference's logical constraints under ``rules``.  Returns (x, the MoE
-    load-balance loss of this layer, or None for a dense FFN).  Every
+    load-balance loss of this layer, or None for a dense FFN).
+    ``moe_ep_axis`` runs the MoE in its shard_map expert-parallel mode
+    (``ops.moe.moe_mlp``'s ``ep_axis``; the pipeline's stages).  Every
     projection is a 2-d matmul (``aten.mm``), which the ``dots`` remat
     policy saves; the MoE's einsums have batch dims (``aten.bmm``) and are
     recomputed, as ``dots_with_no_batch_dims_saveable`` does."""
@@ -408,24 +455,23 @@ def _block(cfg: GPTConfig, rules: Optional[LogicalAxisRules], attn_fn, x,
         return lc(_mlp(cfg, p, x, lc), ("batch", "seq", "embed")), None
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     h, aux = moe_mlp(h, p["mlp"], top_k=cfg.expert_top_k,
-                     capacity_factor=cfg.capacity_factor, lc=lc)
+                     capacity_factor=cfg.capacity_factor, lc=lc,
+                     ep_axis=moe_ep_axis)
     return lc(x + h, ("batch", "seq", "embed")), aux
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-_SAVED_BY_POLICY = {"dots": _DOTS, "attn": (FLASH_FWD_OP,),
-                    "attn_dots": _DOTS + (FLASH_FWD_OP,)}
+_ATTN = (FLASH_FWD_OP, DENSE_ATTENTION_OP)
+_SAVED_BY_POLICY = {"dots": _DOTS, "attn": _ATTN, "attn_dots": _DOTS + _ATTN}
 
 
 def _remat_context_fn(policy: str) -> Callable:
     """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
     (the reference's ``jax.checkpoint`` policies).  ``dots`` saves the
     outputs of matmuls without batch dims, as
-    ``dots_with_no_batch_dims_saveable`` does; ``attn`` saves the flash
-    forward's outputs (the reference saves the attention output by name).
-    On the dense path, whose attention is not one op, ``attn`` saves
-    nothing and ``attn_dots`` equals ``dots``: the grads are the same,
-    only the recompute differs, and ``gpt_hidden`` warns."""
+    ``dots_with_no_batch_dims_saveable`` does; ``attn`` saves the output
+    of the attention op, flash or dense (the reference saves the attention
+    output by name)."""
     if policy == "full":
         return noop_context_fn
     if policy not in _SAVED_BY_POLICY:
@@ -439,8 +485,7 @@ def _remat_context_fn(policy: str) -> Callable:
     return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
-def _remat(cfg, block: Callable, attn_fn: Callable, params: Params
-           ) -> Callable:
+def _remat(cfg, block: Callable, params: Params) -> Callable:
     """``block`` under non-reentrant ``torch.utils.checkpoint`` with the
     policy's selective-checkpoint context when ``cfg.remat`` and autograd
     records (grad enabled and a param requires grad); else ``block``.
@@ -450,14 +495,6 @@ def _remat(cfg, block: Callable, attn_fn: Callable, params: Params
         t.requires_grad for t in _leaves(params))
     if not (cfg.remat and recording):
         return block
-    if (cfg.remat_policy in ("attn", "attn_dots")
-            and attn_fn is _dense_causal_attention_bnsh):
-        warnings.warn(
-            f"remat_policy={cfg.remat_policy!r} saves the flash "
-            f"attention op's output; dense attention is several ops "
-            f"and its output is recomputed, as under "
-            f"{'full' if cfg.remat_policy == 'attn' else 'dots'!r}",
-            UserWarning, stacklevel=3)
     return functools.partial(checkpoint, block, use_reentrant=False,
                              context_fn=_remat_context_fn(cfg.remat_policy))
 
@@ -524,7 +561,7 @@ def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
     tokens = shard_tokens(tokens, params, rules)
     attn_fn = _attention_fn(cfg, B, S, tokens.device, mesh)
     block = _remat(cfg, functools.partial(_block, cfg, rules, attn_fn),
-                   attn_fn, params)
+                   params)
     dt = cfg.dtype
     x = _embedding(tokens, params["wte"]).to(dt) \
         + params["wpe"][:S].to(dt)[None]

@@ -195,17 +195,9 @@ def apply_rope(x, cos, sin):
 def _dense_causal_attention_gqa(q, k, v, rep: int):
     """Head-major grouped-query dense attention: q [B, N, S, H] with
     N = G*rep query heads sharing k/v [B, G, S, H] (query head n reads KV
-    head n // rep).  Scores and output keep the (group, rep) split, so K/V
-    are never repeated; f32 softmax."""
-    B, N, S, H = q.shape
-    G = N // rep
-    qg = q.reshape(B, G, rep, S, H)
-    scores = torch.einsum("bgrqh,bgkh->bgrqk", qg, k).float() / math.sqrt(H)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    o = torch.einsum("bgrqk,bgkh->bgrqh", probs, v)
-    return o.reshape(B, N, S, H)
+    head n // rep), K/V never repeated; f32 softmax (GPT's dense attention
+    op)."""
+    return _dense_causal_attention_bnsh(q, k, v, rep)
 
 
 def _qkv(cfg: LlamaConfig, p: Params, x):
@@ -286,7 +278,7 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
         cos, sin = (DTensor.from_local(t, on, [Replicate()] * on.ndim,
                                        run_check=False) for t in (cos, sin))
     block = _remat(cfg, functools.partial(_block, cfg, rules, attn_fn, cos,
-                                          sin), attn_fn, params)
+                                          sin), params)
     x = _embedding(tokens, params["wte"]).to(cfg.dtype)
     x = _constraint(rules)(x, ("batch", "seq", "embed"))
     for p in _layers(params, cfg.num_layers):

@@ -1,6 +1,6 @@
 """ray_tpu_torch.parallel: mesh construction, sharding rules, collectives.
 
-Port of ``ray_tpu/parallel`` (without the pipeline).  The reference's
+Port of ``ray_tpu/parallel``.  The reference's
 recipe carries over: pick a mesh over the devices, annotate arrays with
 logical axes, and let the framework emit the collectives.  Here the mesh
 is a ``torch.distributed`` ``DeviceMesh`` over ranks (one per card), the
@@ -17,8 +17,8 @@ Axes (any may be 1):
     dp    data parallel           — batch sharding, gradient all-reduce
     fsdp  fully-sharded DP (ZeRO) — batch + parameter sharding on one axis
     tp    tensor parallel         — hidden/heads sharding (Megatron layout)
-    pp    pipeline parallel       — layer-stage sharding (the pipeline
-                                    schedule itself is not ported yet)
+    pp    pipeline parallel       — layer stages, the GPipe and 1F1B
+                                    schedules of ``parallel.pipeline``
     sp    sequence/context        — ring attention over the sequence
     ep    expert parallel         — MoE expert sharding
 """

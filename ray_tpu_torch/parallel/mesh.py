@@ -94,8 +94,9 @@ def device_mesh(device_type: Optional[str], ranks, names: Sequence[str]):
 
 # Mesh axes the port maps by hand instead of placing DTensors on them: sp
 # is ring attention's (``sharding.shard_map`` slices the sequence to each
-# rank's chunk and gathers it back), and pp waits for the pipeline (with no
-# schedule every pp rank runs every layer, so the layer dim stays whole).
+# rank's chunk and gathers it back), and pp is the pipeline's
+# (``parallel/pipeline.py``: every rank holds the whole layer stack and
+# runs its stage's slice of it; the stage grads are summed over the mesh).
 MANUAL_AXES: Tuple[str, ...] = ("pp", "sp")
 
 

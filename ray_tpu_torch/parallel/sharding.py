@@ -23,7 +23,8 @@ DTensors live on ``mesh.active_mesh``: the dims larger than 1 other than
 pp and sp, which are mapped by hand (see ``MANUAL_AXES``).  So a rule
 that maps "seq" to sp, or "layers" to pp, splits no DTensor: activations
 stay whole along the sequence outside ring attention, and each pp rank
-holds every layer until the pipeline is ported.
+holds every layer (the pipeline runs its stage's slice,
+``parallel/pipeline.py``).
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ with the JAX package in the pytest process).  Each function builds its
 meshes with ``device_type="cpu"`` and returns numpy arrays and numbers.
 """
 
+import contextlib
 import os
 import tempfile
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
@@ -18,9 +20,33 @@ from ray_tpu_torch.parallel import (LogicalAxisRules, MeshSpec, P,
                                     barrier_sum, init_sharded, make_mesh,
                                     ppermute_ring, psum_scatter, shard_map,
                                     shard_params, with_logical_constraint)
+from ray_tpu_torch.parallel.gang import run_gang
 from ray_tpu_torch.parallel.sharding import placements_for
 
 CPU = "cpu"
+
+
+@contextlib.contextmanager
+def one_gang_at_a_time():
+    """Hold a lock file in the temp dir for the block.  Each rank of a gang
+    takes a core, so two gangs of parallel test workers at once stretch
+    each other past their deadlines: the tests run their gangs, and the
+    dryrun twin's, one at a time."""
+    import fcntl
+    path = os.path.join(tempfile.gettempdir(), "rt_torch_gang.lock")
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def run(fn, world_size, args=(), timeout_s=120.0):
+    """``run_gang`` under ``one_gang_at_a_time`` (its deadline starts once
+    the lock is held)."""
+    with one_gang_at_a_time():
+        return run_gang(fn, world_size, args, timeout_s=timeout_s)
 
 
 def _np(x):
@@ -344,3 +370,164 @@ def hang(rank, world):
         import time
         time.sleep(600)                 # a rank that never finishes
     return rank
+
+
+# ------------------------------------------------------------- pipeline
+
+def _pp_cfg(**kw):
+    from ray_tpu_torch.models import GPTConfig
+    base = dict(vocab_size=128, max_seq_len=32, num_layers=4, num_heads=2,
+                embed_dim=32, dtype=torch.float32)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def _pp_params(tree, cfg):
+    from ray_tpu_torch.models import params_from_jax
+    from ray_tpu_torch.models.gpt import _leaves
+    params = params_from_jax(tree, cfg, device=CPU)
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _named(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _named(v, name)
+        else:
+            yield name, v
+
+
+def _pp_grads(fn, case, cfg, spec, M):
+    """(loss, grads as the params' tree of numpy arrays) of one backward of
+    the pipelined loss ``fn`` on the case's (JAX params, tokens)."""
+    from ray_tpu_torch.models.gpt import _leaves
+    tree, tokens = case
+    params = _pp_params(tree, cfg)
+    loss = fn(params, {"tokens": torch.from_numpy(tokens)}, cfg,
+              spec.build(CPU), num_microbatches=M)
+    loss.backward()
+    grads = {name: p.grad.float().numpy() for name, p in _named(params)}
+    assert len(grads) == len(list(_leaves(params)))
+    return float(loss), grads
+
+
+def _pp_loss(fn, case, cfg, spec, M):
+    tree, tokens = case
+    with torch.no_grad():
+        return float(fn(_pp_params(tree, cfg),
+                        {"tokens": torch.from_numpy(tokens)}, cfg,
+                        spec.build(CPU), num_microbatches=M))
+
+
+def pipeline_world8(rank, world, setup, moe, moe_train, ring):
+    """tests/test_torch_pipeline.py's 8-rank cases: GPipe and 1F1B loss and
+    grads over pp=2 x dp=4, the pipelined forward's logits, MoE stages over
+    pp=2 x ep=2 x dp=2 (loss; one training step), both schedules' MoE
+    grads over pp=2 x dp=2 x tp=2, ring stages over pp=2 x sp=2 x dp=2.  Every rank returns a digest of its grads, so the test
+    sees that they all hold the same whole gradient."""
+    from ray_tpu_torch.parallel import pipeline as pl
+    from ray_tpu_torch.models.gpt import _leaves
+
+    out = {}
+    cfg = _pp_cfg()
+    pp2dp4 = MeshSpec(dp=4, pp=2)
+    out["gpipe"] = _pp_grads(pl.gpt_loss_pipelined, setup, cfg, pp2dp4, 4)
+    out["1f1b"] = _pp_grads(pl.gpt_loss_1f1b, setup, cfg, pp2dp4, 4)
+    tree, tokens = setup
+    logits, aux = pl.gpt_forward_pipelined(
+        _pp_params(tree, cfg), torch.from_numpy(tokens[:, :-1]), cfg,
+        pp2dp4.build(CPU), num_microbatches=4)
+    out["forward"] = (logits.numpy(), float(aux))
+
+    mcfg = _pp_cfg(num_experts=4, expert_top_k=2)
+    moe_mesh = MeshSpec(dp=2, pp=2, ep=2)
+    out["moe"] = _pp_loss(pl.gpt_loss_pipelined, moe, mcfg, moe_mesh, 4)
+    tree, tokens = moe_train
+    params = _pp_params(tree, mcfg)
+    before = {n: t.detach().clone() for n, t in _named(params["layers"])}
+    opt = torch.optim.AdamW(list(_leaves(params)), lr=1e-3,
+                            weight_decay=1e-4)
+    step = pl.make_pipeline_train_step(mcfg, opt, moe_mesh.build(CPU),
+                                       num_microbatches=4)
+    m = step(params, {"tokens": torch.from_numpy(tokens)})
+    out["moe_train"] = (float(m["loss"]), {
+        n: float((t.detach() - before[n]).abs().max())
+        for n, t in _named(params["layers"]) if n.startswith("mlp.")})
+
+    # 1F1B's aux cotangent and its division by a redundant axis (tp, on
+    # which every rank repeats its work), against GPipe's autograd
+    acfg = _pp_cfg(num_experts=4, expert_top_k=2, moe_aux_coef=0.5)
+    spec = MeshSpec(dp=2, pp=2, tp=2)
+    out["moe_1f1b"] = {name: _pp_grads(fn, moe, acfg, spec, 4)
+                       for name, fn in (("gpipe", pl.gpt_loss_pipelined),
+                                        ("1f1b", pl.gpt_loss_1f1b))}
+
+    rcfg = _pp_cfg(max_seq_len=64, attention="ring")
+    out["ring"] = _pp_grads(pl.gpt_loss_pipelined, ring, rcfg,
+                            MeshSpec(dp=2, pp=2, sp=2), 4)
+    digest = {k: (v[0], {n: float((g.astype("float64") ** 2).sum())
+                         for n, g in v[1].items()})
+              for k, v in out.items() if k in ("gpipe", "1f1b", "ring")}
+    return out if rank == 0 else digest
+
+
+def pipeline_world4(rank, world, odd, flash, bf16):
+    """The 4-rank cases (pp=2 x dp=2): an odd microbatch count (M=3), flash
+    stages (the plain versions here), 1F1B in the default bf16 compute
+    dtype, and the shape checks."""
+    from ray_tpu_torch.parallel import pipeline as pl
+
+    out = {}
+    spec = MeshSpec(dp=2, pp=2)
+    cfg = _pp_cfg()
+    out["odd"] = _pp_loss(pl.gpt_loss_pipelined, odd, cfg, spec, 3)
+    out["flash"] = _pp_loss(pl.gpt_loss_pipelined, flash,
+                            _pp_cfg(attention="flash"), spec, 4)
+    bcfg = _pp_cfg(dtype=torch.bfloat16)
+    loss, grads = _pp_grads(pl.gpt_loss_1f1b, bf16, bcfg, spec, 4)
+    out["bf16"] = (loss, {n: bool(np.isfinite(g).all())
+                          for n, g in grads.items()})
+    tree, tokens = odd
+    errors = {}
+    for name, c, m, rows in (("layers", _pp_cfg(num_layers=3), 3, 12),
+                             ("batch", cfg, 5, 12), ("data", cfg, 4, 12)):
+        try:
+            pl.gpt_loss_pipelined(_pp_params(tree, cfg),
+                                  {"tokens": torch.from_numpy(
+                                      tokens[:rows])}, c, spec.build(CPU),
+                                  num_microbatches=m)
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    return out if rank == 0 else None
+
+
+def pipeline_learns(rank, world, case, M, schedule, steps, lr):
+    """Losses of ``steps`` AdamW steps (optax.adamw's settings) of a
+    pipelined train step over pp=2 x dp=(world / 2)."""
+    from ray_tpu_torch.models.gpt import _leaves
+    from ray_tpu_torch.parallel import pipeline as pl
+    cfg = _pp_cfg()
+    tree, tokens = case
+    params = _pp_params(tree, cfg)
+    make = (pl.make_1f1b_train_step if schedule == "1f1b"
+            else pl.make_pipeline_train_step)
+    step = make(cfg, torch.optim.AdamW(list(_leaves(params)), lr=lr,
+                                       weight_decay=1e-4),
+                MeshSpec(dp=world // 2, pp=2).build(CPU), num_microbatches=M)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    return [float(step(params, batch)["loss"]) for _ in range(steps)]
+
+
+def pipeline_memory(rank, world, case, M):
+    """Each schedule's activation bytes (``schedule_activation_bytes``)
+    over pp=2 x dp=(world / 2)."""
+    from ray_tpu_torch.parallel import pipeline as pl
+    cfg = _pp_cfg()
+    tree, tokens = case
+    return pl.schedule_activation_bytes(
+        _pp_params(tree, cfg), {"tokens": torch.from_numpy(tokens)}, cfg,
+        MeshSpec(dp=world // 2, pp=2).build(CPU), num_microbatches=M)

@@ -16,8 +16,8 @@ updated params atol 1e-6 (two steps of lr 3e-4 move each param by at most
 f32 rounding (rtol 1e-6, atol 1e-7).
 """
 
-import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +31,7 @@ from ray_tpu.models import gpt as jgpt
 from ray_tpu_torch.models import (GPTConfig, gpt_loss, make_train_state,
                                   make_train_step, params_from_jax,
                                   params_to_numpy)
+from ray_tpu_torch.models.gpt import DENSE_ATTENTION_OP
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 
 CPU = "cpu"
@@ -141,38 +142,43 @@ def test_ragged_ce_block_warns_or_raises(jax_params, monkeypatch):
         gpt_loss(params, batch, ragged)
 
 
-class _CountFlash(TorchDispatchMode):
-    """Counts the flash forward op's runs (a selective-checkpoint policy
-    that saves its output serves the recompute from its cache)."""
+class _CountAttention(TorchDispatchMode):
+    """Counts the runs of the attention ops, flash and dense (a
+    selective-checkpoint policy that saves an op's output serves the
+    recompute from its cache)."""
 
     def __init__(self):
         super().__init__()
-        self.runs = 0
+        self.runs = {FLASH_FWD_OP: 0, DENSE_ATTENTION_OP: 0}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.runs += func == FLASH_FWD_OP
+        if func in self.runs:
+            self.runs[func] += 1
         return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("attention", ["flash", "dense"])
 def test_remat_policies_match_no_remat(jax_params, attention):
+    """Every policy gives the remat=False grads; "attn" and "attn_dots"
+    save the attention op's output on both paths, as the reference saves
+    "attn_out", so its forward runs once per layer, where "full" and
+    "dots" run it again in the backward."""
     _, cfg = _configs(attention=attention, ce_block=8, remat=False)
     params = _port_params(jax_params, cfg)
     l0, g0 = _port_loss_and_grads(params, _tokens(), cfg)
     L = cfg.num_layers
+    op, other = ((FLASH_FWD_OP, DENSE_ATTENTION_OP) if attention == "flash"
+                 else (DENSE_ATTENTION_OP, FLASH_FWD_OP))
     for policy, runs in (("full", 2 * L), ("dots", 2 * L), ("attn", L),
                          ("attn_dots", L)):
         rcfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
-        # Dense attention has no op whose output the attn policies can
-        # save: they recompute it, and say so.
-        said = (pytest.warns(UserWarning, match="dense attention")
-                if attention == "dense" and policy.startswith("attn")
-                else contextlib.nullcontext())
-        with said, _CountFlash() as count:
-            loss, grads = _port_loss_and_grads(params, _tokens(), rcfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with _CountAttention() as count:
+                loss, grads = _port_loss_and_grads(params, _tokens(), rcfg)
         np.testing.assert_allclose(loss, l0, rtol=1e-6)
         _assert_grads_close(grads, g0, rtol=1e-6, atol=1e-7)
-        assert count.runs == (runs if attention == "flash" else 0), policy
+        assert (count.runs[op], count.runs[other]) == (runs, 0), policy
     with pytest.raises(ValueError, match="remat_policy"):
         _port_loss_and_grads(params, _tokens(), dataclasses.replace(
             cfg, remat=True, remat_policy="nope"))

@@ -20,8 +20,8 @@ The configs have 6 query heads over 2 KV heads (rep 3) or 6 (rep 1), so a
 wrong pairing of query and KV heads cannot pass.
 """
 
-import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +40,8 @@ from ray_tpu_torch.models import (LlamaConfig, apply_rope,
                                   llama_make_train_step, llama_prefill,
                                   params_from_jax, params_to_numpy,
                                   rope_tables)
-from ray_tpu_torch.models.gpt import _dense_causal_attention_bnsh
+from ray_tpu_torch.models.gpt import (DENSE_ATTENTION_OP,
+                                      _dense_causal_attention_bnsh)
 from ray_tpu_torch.models.llama import (_dense_causal_attention_gqa,
                                         param_shapes)
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
@@ -261,16 +262,17 @@ def test_blocked_ce_llama_and_ragged_block(monkeypatch):
 
 
 class _CountOps(TorchDispatchMode):
-    """Counts runs of the flash forward op and of 2-d matmuls (a
-    selective-checkpoint policy that saves an op's output serves its
-    recompute from the cache, unseen here)."""
+    """Counts runs of the attention ops (flash and dense) and of 2-d
+    matmuls (a selective-checkpoint policy that saves an op's output
+    serves its recompute from the cache, unseen here)."""
 
     def __init__(self):
         super().__init__()
-        self.flash = self.mm = 0
+        self.flash = self.dense = self.mm = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.flash += func == FLASH_FWD_OP
+        self.dense += func == DENSE_ATTENTION_OP
         self.mm += func == torch.ops.aten.mm.default
         return func(*args, **(kwargs or {}))
 
@@ -279,7 +281,9 @@ class _CountOps(TorchDispatchMode):
 def test_remat_policies_match_no_remat(jax_params, attention):
     """Every policy gives the remat=False grads; "dots" recomputes none of
     the projections (each a 2-d matmul it saves), so its forward and
-    backward run as many matmuls as remat=False's, and "full" more."""
+    backward run as many matmuls as remat=False's, and "full" more;
+    "attn" and "attn_dots" save the attention op's output, flash or the
+    grouped dense op, so it runs once per layer."""
     _, cfg = _configs(attention=attention, ce_block=8)
     params = _port_params(jax_params, cfg, grad=True)
     toks = _tokens(S=33)
@@ -290,14 +294,15 @@ def test_remat_policies_match_no_remat(jax_params, attention):
     for policy, runs in (("full", 2 * L), ("dots", 2 * L), ("attn", L),
                          ("attn_dots", L)):
         rcfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
-        said = (pytest.warns(UserWarning, match="dense attention")
-                if attention == "dense" and policy.startswith("attn")
-                else contextlib.nullcontext())
-        with said, _CountOps() as count:
-            loss, grads = _port_loss_and_grads(params, toks, rcfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with _CountOps() as count:
+                loss, grads = _port_loss_and_grads(params, toks, rcfg)
         np.testing.assert_allclose(loss, l0, rtol=1e-6)
         _assert_grads_close(grads, g0, rtol=1e-6, atol=1e-7)
-        assert count.flash == (runs if attention == "flash" else 0), policy
+        flash = attention == "flash"
+        assert (count.flash, count.dense) == (
+            (runs, 0) if flash else (0, runs)), policy
         mm[policy] = count.mm
     assert mm["dots"] == mm["attn_dots"] == mm["none"] < mm["full"], mm
 

@@ -37,7 +37,6 @@ from ray_tpu_torch.models import (GPTConfig, gpt_forward, gpt_init,
                                   make_train_state, make_train_step,
                                   params_from_jax, params_to_numpy)
 from ray_tpu_torch.ops.moe import moe_mlp, moe_router
-from ray_tpu_torch.parallel.gang import run_gang
 
 CPU = "cpu"
 BASE = dict(vocab_size=128, max_seq_len=32, num_layers=2, num_heads=2,
@@ -97,7 +96,7 @@ def jparams():
 @pytest.fixture(scope="module")
 def world8(jparams):
     x, p = _mlp_inputs()
-    return run_gang(gang.moe_world8, 8, (_tree(jparams), _tokens()[:, :-1],
+    return gang.run(gang.moe_world8, 8, (_tree(jparams), _tokens()[:, :-1],
                                          x, p), timeout_s=120)[0]
 
 

@@ -26,7 +26,6 @@ from ray_tpu.parallel import make_mesh as jmake_mesh
 from ray_tpu.parallel import ppermute_ring as jppermute
 from ray_tpu_torch.parallel import (AXIS_ORDER, LogicalAxisRules, MeshSpec,
                                     slice_layout)
-from ray_tpu_torch.parallel.gang import run_gang
 
 DEADLINE_S = 120
 
@@ -44,7 +43,7 @@ def _paged_inputs():
 
 @pytest.fixture(scope="module")
 def world8():
-    return run_gang(gang.parallel_world8, 8, (_paged_inputs(),),
+    return gang.run(gang.parallel_world8, 8, (_paged_inputs(),),
                     timeout_s=DEADLINE_S)[0]
 
 
@@ -55,7 +54,7 @@ def a2a_input():
 
 @pytest.fixture(scope="module")
 def world4(a2a_input):
-    return run_gang(gang.parallel_world4, 4, (a2a_input,),
+    return gang.run(gang.parallel_world4, 4, (a2a_input,),
                     timeout_s=DEADLINE_S)[0]
 
 
@@ -228,9 +227,11 @@ def test_gang_fails_fast_and_keeps_its_deadline():
     """A rank that raises fails the gang without waiting out the deadline;
     a hang fails it at the deadline; either way every rank is killed."""
     import time
-    t0 = time.monotonic()
-    with pytest.raises(RuntimeError, match="exited with code 1"):
-        run_gang(gang.fail_on_rank_1, 2, timeout_s=DEADLINE_S)
-    with pytest.raises(TimeoutError, match=r"ranks \[1\] still running"):
-        run_gang(gang.hang, 2, timeout_s=10)
-    assert time.monotonic() - t0 < DEADLINE_S
+    with gang.one_gang_at_a_time():
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="exited with code 1"):
+            gang.run_gang(gang.fail_on_rank_1, 2, timeout_s=DEADLINE_S)
+        with pytest.raises(TimeoutError,
+                           match=r"ranks \[1\] still running"):
+            gang.run_gang(gang.hang, 2, timeout_s=10)
+        assert time.monotonic() - t0 < DEADLINE_S

@@ -104,6 +104,7 @@ def test_entry_points_raise_without_a_card(no_card):
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.dryrun import dryrun_multichip
     from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.pipeline import dryrun_pipeline
     from ray_tpu_torch.models import (GPTConfig, LlamaConfig, gpt_init,
                                       init_paged_cache, llama_init,
                                       llama_init_paged_cache, mlp_init,
@@ -132,7 +133,8 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: make_mesh({"x": 2}),
                  lambda: gpt_init(0, dataclasses.replace(cfg,
                                                          num_experts=4)),
-                 lambda: dryrun_multichip(2)):
+                 lambda: dryrun_multichip(2),
+                 lambda: dryrun_pipeline(2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

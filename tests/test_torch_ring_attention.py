@@ -23,7 +23,6 @@ from ray_tpu.ops.flash_attention import _dense_reference
 from ray_tpu.ops.ring_attention import ring_attention, ulysses_attention
 from ray_tpu.parallel import MeshSpec as JMeshSpec
 from ray_tpu.parallel import make_mesh as jmake_mesh
-from ray_tpu_torch.parallel.gang import run_gang
 
 ATOL = 2e-5
 DEADLINE_S = 120
@@ -47,13 +46,13 @@ SP1 = _qkv(7, B=4, S=16, N=2, H=8)
 
 @pytest.fixture(scope="module")
 def world8():
-    return run_gang(gang.ring_world8, 8, (SP8, DP2_SP4),
+    return gang.run(gang.ring_world8, 8, (SP8, DP2_SP4),
                     timeout_s=DEADLINE_S)[0]
 
 
 @pytest.fixture(scope="module")
 def world4():
-    return run_gang(gang.ring_world4, 4, (GRADS, ULYSSES, SP1),
+    return gang.run(gang.ring_world4, 4, (GRADS, ULYSSES, SP1),
                     timeout_s=DEADLINE_S)[0]
 
 

@@ -9,16 +9,18 @@ Mirrors tests/test_models.py (``test_gpt_param_axes_tree_matches``,
 losses within |dloss| < 1e-4 after two SGD steps from the JAX init, and
 the single-device loss within the same of JAX's own ``make_train_step``.
 Adds the flash op on a mesh (remat "dots", blocked head), the dryrun twin
-of ``__graft_entry__.dryrun_multichip`` at n=8, and the autotune
+of ``__graft_entry__.dryrun_multichip`` at n=8 (its stages main, moe,
+multislice and pipeline; only rl is not run), and the autotune
 dispatcher's ring variant against the dense reference at atol 2e-5
 (mirrors tests/test_autotune.py:272).
 
 The torch side runs in one gloo gang of 8 ranks (120 s deadline; rank
 function ``models_world8`` in ``_torch_gang.py``); the dryrun runs its own
-three gangs under its own deadline.
+four gangs under its own deadline.
 """
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +36,6 @@ from ray_tpu_torch.dryrun import dryrun_multichip
 from ray_tpu_torch.models import GPTConfig, LlamaConfig, gpt_init, llama_init
 from ray_tpu_torch.models.gpt import gpt_param_axes
 from ray_tpu_torch.models.llama import llama_param_axes
-from ray_tpu_torch.parallel.gang import run_gang
 
 TINY = dict(vocab_size=128, max_seq_len=32, num_layers=2)
 JGPT = jgpt.GPTConfig(num_heads=2, embed_dim=16, dtype=jnp.float32, **TINY)
@@ -65,7 +66,7 @@ def jax_params():
 @pytest.fixture(scope="module")
 def world8(jax_params):
     gp, lp = jax_params
-    return run_gang(gang.models_world8, 8,
+    return gang.run(gang.models_world8, 8,
                     (_tree(gp), _tree(lp), BATCH8, BATCH8_7, BATCH4,
                      RING_QKV), timeout_s=120)[0]
 
@@ -156,11 +157,22 @@ def test_dispatched_ring_variant_matches_dense_reference(world8):
 
 
 def test_dryrun_multichip_twin(capsys):
-    lines = dryrun_multichip(8, "cpu")
-    assert set(lines) == {"main", "moe", "multislice"}
-    for name, line in lines.items():
-        loss = float(line.rsplit("loss=", 1)[1])
-        assert math.isfinite(loss), line
+    with gang.one_gang_at_a_time():
+        lines = dryrun_multichip(8, "cpu")
+    assert set(lines) == {"main", "moe", "multislice", "pipeline"}
+    for name, text in lines.items():
+        for line in text.splitlines():
+            loss = float(re.search(r"loss=(-?[0-9.]+)", line).group(1))
+            assert math.isfinite(loss), line
     assert "'sp': 2" in lines["main"] and "'tp': 2" in lines["main"]
+    # the pipeline stage: its four loss lines, each matching the
+    # unpipelined loss (the stage raises otherwise), 1F1B's with both
+    # schedules' activation memory
+    pipe = lines["pipeline"].splitlines()
+    assert [line.split("]")[0].split("[")[1] for line in pipe] == [
+        "dense pp x dp", "flash pp x dp", "moe pp x ep", "1f1b pp x dp"]
+    assert all("matches reference" in line for line in pipe)
+    assert "M=16" in pipe[-1] and "activation memory" in pipe[-1]
     out = capsys.readouterr().out
-    assert "[pipeline] not run" in out and "[rl] not run" in out
+    assert "[rl] not run" in out and "not run" not in out.replace(
+        "[rl] not run", "")
