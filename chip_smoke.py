@@ -139,6 +139,26 @@ Every phase prints one JSON line and any failure exits nonzero:
            at the training call [32,12,1024,64], each with the device time
            of scaled_dot_product_attention's forward beside its event time
 
+  runtime  the port's runtime core on the card, after the other phases
+           (cache emptied): the free size of /dev/shm (the phase fails
+           when it cannot hold the 2 GiB store); init(num_cpus=4) and its
+           resources (GPU: 1 and accelerator_type:H100, found by the
+           daemon with no override); GPT-2-small's f32 params put as a
+           numpy tree, a num_gpus=1 actor built on them (its
+           CUDA_VISIBLE_DEVICES, cold start split into torch import, CUDA
+           init and params), the bf16 flash forward on [2, 1024] tokens
+           from seed 0 in the actor (its own launch counts: exactly 12
+           flash forward launches a forward, nothing else) and its logits
+           back as a CUDA tensor, bit-identical to the in-process forward
+           (else within the in-process bf16-against-f32 error); a second
+           num_gpus=1 actor waits while the first lives and, after the
+           first is killed, gives the same logits; a num_gpus=0 task sees
+           CUDA_VISIBLE_DEVICES="" and gets the logits as an equal CPU
+           tensor; put/get GB/s of the params and the logits, the empty
+           task round trip, init seconds; after shutdown no segment of
+           the session is left
+  total    the script's seconds
+
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits nonzero before printing any result.
 """
@@ -564,6 +584,8 @@ def phase_forward(dev, cfg, params, B, S, windows_n=5, per_window=4):
           out["bf16_top1_dense_vs_f32"] - 0.005,
           "bf16 flash top-1 is further from the f32 forward than dense's")
     return {"launches_per_forward": per_fwd, "ms": ms,
+            "bf16_flash_max_abs_diff_vs_f32":
+            out["bf16_flash_max_abs_diff_vs_f32"],
             **{k: v for k, v in out.items() if k.startswith("bf16_top1")}}
 
 
@@ -1466,6 +1488,308 @@ def phase_attention_shapes(dev, shapes=ATTENTION_SHAPES):
         del q, k, v, do, o, lse, di
 
 
+# ------------------------------------------------------------ runtime core
+
+# GPT-2-small's f32 params (498 MB) and two of its f32 logits at [2, 1024]
+# (412 MB each) live in the store at once, with headroom.
+RUNTIME_STORE_BYTES = 2 << 30
+RUNTIME_TOKENS = (2, 1024)
+
+
+def gpt_fields(cfg) -> dict:
+    """A GPTConfig as plain values (dtype by name), so an actor's
+    arguments unpickle without importing torch before it times that."""
+    return {f.name: (str(getattr(cfg, f.name)).removeprefix("torch.")
+                     if f.name == "dtype" else getattr(cfg, f.name))
+            for f in dataclasses.fields(cfg)}
+
+
+class GPTActor:
+    """GPT-2 on its worker's card: the weights from the object store, the
+    forward on the flash kernels, the logits back through the store.  A
+    worker without a card raises (params_from_jax resolves the card)."""
+
+    def __init__(self, tree, fields):
+        import os
+        t0 = time.perf_counter()
+        import torch
+        t1 = time.perf_counter()
+        check(torch.cuda.is_available(),
+              f"GPU actor sees no card (CUDA_VISIBLE_DEVICES="
+              f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        from ray_tpu_torch.models import GPTConfig, params_from_jax
+        self.cfg = GPTConfig(**{**fields,
+                                "dtype": getattr(torch, fields["dtype"])})
+        self.params = params_from_jax(tree, self.cfg)
+        torch.cuda.synchronize()
+        self.start = {"import_torch_s": t1 - t0, "cuda_init_s": t2 - t1,
+                      "params_s": time.perf_counter() - t2}
+        self.logits = None
+
+    def info(self) -> dict:
+        import os
+
+        import torch
+        return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": torch.cuda.get_device_name(0),
+                "params_device": str(self.params["wte"].device),
+                "pid": os.getpid(), **self.start}
+
+    def forward(self, tokens, timed=5) -> dict:
+        """One forward kept for ``logits``, then ``timed`` more timed; the
+        launch counts are this process's, set to 0 before the first."""
+        import torch
+        from ray_tpu_torch.models import gpt_forward
+        tokens = tokens.to("cuda")
+        reset_launch_counts()
+        self.logits = gpt_forward(self.params, tokens, self.cfg)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            gpt_forward(self.params, tokens, self.cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return {"launches": launch_counts(), "forwards": timed + 1,
+                "ms": statistics.median(times)}
+
+    def get_logits(self):
+        return self.logits
+
+
+def cpu_probe(t):
+    """What a worker without a card sees of a tensor sent from a card."""
+    import os
+
+    import torch
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_available": torch.cuda.is_available(),
+            "device": t.device.type, "dtype": str(t.dtype),
+            "shape": list(t.shape), "sha256": tensor_sha256(t)}
+
+
+def tensor_sha256(t) -> str:
+    import hashlib
+
+    import torch
+    raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def noop():
+    return None
+
+
+def in_process_forward(dev, cfg, tree, tokens, timed=5):
+    """The driver's own bf16 flash forward on the same params and tokens:
+    (logits, median ms, bf16 flash against f32 dense max |err|)."""
+    import torch
+    from ray_tpu_torch.models import gpt_forward, params_from_jax
+    params = params_from_jax(tree, cfg, device=dev)
+    tokens = tokens.to(dev)
+    logits = gpt_forward(params, tokens, cfg)
+    f32 = gpt_forward(params, tokens, dataclasses.replace(
+        cfg, dtype=torch.float32, attention="dense"))
+    err = float((logits - f32).abs().max())
+    del f32
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        gpt_forward(params, tokens, cfg)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return logits, statistics.median(times), err
+
+
+def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
+    """Steps 3-7 of the runtime phase on a running cluster: the params
+    through the store to a num_gpus=1 actor, its forward, the second actor
+    waiting on the card, and a task without a card.  ``limit`` bounds the
+    actor's logits against the in-process forward's when they are not
+    bit-identical (default: the in-process bf16-against-f32 error).
+    Returns the phase's numbers, the actor's launch counts among them."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch as rt
+    fields = gpt_fields(cfg)
+    want_visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+    params_bytes = sum(v.nbytes for v in _numpy_leaves(tree))
+    out = {"params_bytes": params_bytes}
+
+    t0 = time.perf_counter()
+    tree_ref = rt.put(tree)
+    out["put_params_GBps"] = params_bytes / (time.perf_counter() - t0) / 1e9
+    t0 = time.perf_counter()
+    rt.get(tree_ref)
+    out["get_params_GBps"] = params_bytes / (time.perf_counter() - t0) / 1e9
+    # The same tree as CPU tensors: a got tensor is a copy (numpy arrays
+    # are read-only views of the store), which is what this costs.
+    tensors = _tensor_tree(tree)
+    t0 = time.perf_counter()
+    tensors_ref = rt.put(tensors)
+    out["put_params_tensors_GBps"] = params_bytes / (time.perf_counter() -
+                                                     t0) / 1e9
+    t0 = time.perf_counter()
+    got = rt.get(tensors_ref)
+    out["get_params_tensors_GBps"] = params_bytes / (time.perf_counter() -
+                                                     t0) / 1e9
+    check(torch.equal(got["wte"], tensors["wte"]), "tensor tree changed")
+    del tensors, tensors_ref, got
+
+    actor_cls = rt.remote(GPTActor)
+    t0 = time.perf_counter()
+    first = actor_cls.options(num_gpus=1).remote(tree_ref, fields)
+    info = rt.get(first.info.remote(), timeout=600)
+    out["actor_cold_start_s"] = time.perf_counter() - t0
+    out["actor"] = info
+    check(info["cuda_visible_devices"] == want_visible,
+          f"GPU actor's CUDA_VISIBLE_DEVICES is "
+          f"{info['cuda_visible_devices']!r}, not {want_visible!r}")
+    check(info["params_device"] == "cuda:0", "actor params not on cuda:0")
+
+    fwd = rt.get(first.forward.remote(tokens), timeout=600)
+    per_fwd = cfg.num_layers
+    check(fwd["launches"] == (per_fwd * fwd["forwards"], 0, 0, 0, 0, 0),
+          f"the actor's {fwd['forwards']} forwards launched "
+          f"{dict(zip(KERNEL_NAMES, fwd['launches']))}")
+    logits_ref = first.get_logits.remote()
+    rt.wait([logits_ref], timeout=600)
+    t0 = time.perf_counter()
+    logits = rt.get(logits_ref)
+    get_s = time.perf_counter() - t0
+    logits_bytes = logits.numel() * logits.element_size()
+    check(isinstance(logits, torch.Tensor) and logits.device == dev,
+          f"the actor's logits came back on {logits.device}, not {dev}")
+    check(logits.dtype == torch.float32 and
+          tuple(logits.shape) == (*tokens.shape, cfg.vocab_size),
+          f"actor logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "actor logits not finite")
+    out["get_logits_GBps"] = logits_bytes / get_s / 1e9
+    t0 = time.perf_counter()
+    again = rt.put(logits)
+    out["put_logits_GBps"] = logits_bytes / (time.perf_counter() - t0) / 1e9
+    t0 = time.perf_counter()
+    check(torch.equal(rt.get(again), logits), "logits put/get changed them")
+    out["get_logits_again_GBps"] = logits_bytes / (time.perf_counter() -
+                                                   t0) / 1e9
+    del again
+
+    ref_logits, ref_ms, bf16_err = in_process_forward(dev, cfg, tree, tokens)
+    limit = bf16_err if limit is None else min(limit, bf16_err)
+    same = torch.equal(logits, ref_logits)
+    diff = 0.0 if same else float((logits - ref_logits).abs().max())
+    del ref_logits
+    out.update(actor_launches=fwd["launches"], actor_forwards=fwd["forwards"],
+               actor_forward_ms=fwd["ms"], in_process_forward_ms=ref_ms,
+               bit_identical=same, max_abs_diff_vs_in_process=diff,
+               limit=limit, in_process_bf16_vs_f32=bf16_err)
+    check(same or diff <= limit,
+          f"actor logits differ from the in-process forward's by {diff} "
+          f"(limit {limit})")
+
+    # The card is held: a second one-card actor waits for the first.
+    second = actor_cls.options(num_gpus=1).remote(tree_ref, fields)
+    second_info = second.info.remote()
+    ready, _ = rt.wait([second_info], timeout=2)
+    check(ready == [], "a second num_gpus=1 actor started while the first "
+          "held the only card")
+    rt.kill(first)
+    t0 = time.perf_counter()
+    info2 = rt.get(second_info, timeout=600)
+    out["second_actor_start_after_kill_s"] = time.perf_counter() - t0
+    check(info2["cuda_visible_devices"] == want_visible,
+          "second actor's CUDA_VISIBLE_DEVICES")
+    fwd2 = rt.get(second.forward.remote(tokens), timeout=600)
+    check(fwd2["launches"] == (per_fwd * fwd2["forwards"], 0, 0, 0, 0, 0),
+          f"the second actor launched {fwd2['launches']}")
+    logits2_ref = second.get_logits.remote()
+    check(torch.equal(rt.get(logits2_ref), logits),
+          "the second actor's logits differ from the first's")
+    out["actor_launches"] = tuple(a + b for a, b in
+                                  zip(fwd["launches"], fwd2["launches"]))
+    out["actor_forwards"] += fwd2["forwards"]
+
+    # A task without a card gets the CUDA logits as an equal CPU tensor.
+    probe = rt.get(rt.remote(num_gpus=0)(cpu_probe).remote(logits2_ref),
+                   timeout=600)
+    check(probe["cuda_visible_devices"] == "" and
+          not probe["cuda_available"], f"CPU task saw a card: {probe}")
+    check(probe["device"] == "cpu" and probe["dtype"] == "torch.float32" and
+          probe["sha256"] == tensor_sha256(logits),
+          f"CPU task's logits differ: {probe}")
+    rt.kill(second)
+    del logits, logits2_ref
+
+    task = rt.remote(noop)
+    rt.get(task.remote())
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rt.get(task.remote())
+    out["empty_task_round_trip_us"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def _tensor_tree(tree):
+    import torch
+    return {k: _tensor_tree(v) if isinstance(v, dict) else
+            torch.from_numpy(v) for k, v in tree.items()}
+
+
+def _numpy_leaves(tree):
+    for v in tree.values():
+        yield from (_numpy_leaves(v) if isinstance(v, dict) else [v])
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def phase_runtime(dev, cfg, limit, smi):
+    """The runtime core on the card (see the module docstring)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import gpt_init, params_to_numpy
+    free = shm_free_bytes()
+    print(f"runtime: /dev/shm has {free} bytes free; the store needs "
+          f"{RUNTIME_STORE_BYTES}", flush=True)
+    check(free >= RUNTIME_STORE_BYTES,
+          f"/dev/shm has {free} bytes free, too little for the runtime "
+          f"phase's {RUNTIME_STORE_BYTES}-byte object store")
+    check("RT_NUM_GPUS" not in os.environ,
+          "RT_NUM_GPUS is set: the daemon must find the card itself")
+    tree = params_to_numpy(gpt_init(SEED, cfg, device="cpu"))
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, RUNTIME_TOKENS, generator=gen)
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=4, object_store_memory=RUNTIME_STORE_BYTES)
+    init_s = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        print(f"runtime: cluster_resources {json.dumps(res)}", flush=True)
+        types = [k for k in res if k.startswith("accelerator_type:")]
+        check(res.get("GPU") == 1.0, f"the node advertises {res}, not GPU: 1")
+        check(len(types) == 1 and "H100" in types[0],
+              f"the node's accelerator_type is {types}")
+        out = runtime_steps(dev, cfg, tree, tokens, limit=limit)
+    finally:
+        rt.shutdown()
+    left = [e for e in os.listdir("/dev/shm")
+            if re.match(rf"rtt?_{info['pid']}_", e)]
+    check(left == [], f"the session left segments {left}")
+    emit("runtime", card=smi, init_s=init_s, resources=res,
+         store_bytes=RUNTIME_STORE_BYTES, shm_free_bytes=free,
+         tokens=list(RUNTIME_TOKENS), **out)
+    return out
+
+
 # ---------------------------------------------------------- parallel layer
 
 
@@ -2048,6 +2372,11 @@ def run() -> int:
     bwd_times = phase_kernel_bwd_times(dev, *TRAIN_CASE[1])
     splash_times = phase_splash_kernel_times(dev)
     phase_attention_shapes(dev)
+    torch.cuda.empty_cache()
+    runtime = phase_runtime(dev, dataclasses.replace(
+        cfg, dtype=torch.bfloat16, attention="flash"),
+        fwd["bf16_flash_max_abs_diff_vs_f32"], smi)
+    emit("total", seconds=time.monotonic() - _T0)
     pipe_launches = [pipe["gpipe"]["launches"][i] +
                      pipe["1f1b"]["launches"][i] for i in range(3)]
     main_o, main_lse = errs[MAIN_CASE[0]]
@@ -2066,8 +2395,10 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:91",
          "launches": infer_launches[0] + train["launches"][0] +
          llama_infer[0] + llama_train["launches"][0] +
-         moe_train["launches"][0] + pipe_launches[0],
+         moe_train["launches"][0] + pipe_launches[0] +
+         runtime["actor_launches"][0],
          "launches_inference": infer_launches[0],
+         "launches_runtime": runtime["actor_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],

@@ -1,0 +1,240 @@
+"""Deterministic fault injection for chaos testing.
+
+Reference analog: ``python/ray/_private/test_utils.py`` NodeKillerActor
+(:1346) — the reference treats failure injection as a first-class,
+reusable API so chaos tests gate their assertions on *observed* cluster
+state (death recorded, recovery complete) instead of ad-hoc process
+kills plus wall-clock sleeps.
+
+* **Process-local hooks.**  A JSON spec in the ``RT_FAULT_INJECTION``
+  env var, parsed once per process.  Daemons consult it at exactly three
+  injection points: the forkserver template serve loop (``"forkserver":
+  "wedge"`` accepts connections and never replies; ``{"mode": "slow",
+  "delay_s": X}`` replies late), the raylet heartbeat loop
+  (``"heartbeat_delay_s": X`` stretches the period), and the RPC frame
+  send path (``"drop_rpc": {"conn": <name substring>, "every": N}``
+  silently drops every Nth outgoing frame on matching connections —
+  see ``protocol.set_frame_fault``).  Start ONE node of a test cluster
+  with ``env=env_for(...)`` to fault just that node.
+
+The observers and the NodeKiller of ``ray_tpu`` wait for the state API
+(``util/state``), which is not ported yet; nor are the serve and train
+hooks, whose callers are not ported either.
+
+Everything here is import-light (stdlib only at module load) because the
+forkserver template and the protocol layer import it inside daemons.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+ENV_VAR = "RT_FAULT_INJECTION"
+
+
+@dataclass
+class FaultSpec:
+    forkserver: Optional[Any] = None     # "wedge" | {"mode","delay_s"}
+    heartbeat_delay_s: float = 0.0
+    drop_rpc: Optional[Dict[str, Any]] = None
+    # Data-plane faults (see raylet fetch/spill paths):
+    # corrupt_chunk: {"every": N} — bit-flip every Nth fetch chunk SERVED
+    # by this process (models bad RAM/NIC on a holder node).
+    corrupt_chunk: Optional[Any] = None
+    # truncate_spill: {"every": N, "keep": fraction} — truncate every Nth
+    # spill file right after its durable write (models a torn write that
+    # survived a crash, the exact artifact the spill header detects).
+    truncate_spill: Optional[Any] = None
+    # drop_fetch_reply: {"every": N} — fail every Nth fetch_object request
+    # with an error reply (models a flaky holder; the puller's retry
+    # rounds, not lineage, should absorb it).
+    drop_fetch_reply: Optional[Any] = None
+    # partition: {"conn": substr, "after_s": N, "heal_s": M?} — a
+    # control-plane partition window: ``after_s`` seconds into the
+    # process's life, force-close (and refuse to redial) every connection
+    # whose name contains ``conn``; the window heals ``heal_s`` seconds
+    # later (omit heal_s for a permanent partition).  Exercises the
+    # reconnect/resurrection machinery end to end (protocol redial, GCS
+    # grace timer, raylet resync).
+    partition: Optional[Dict[str, Any]] = None
+
+    @classmethod
+    def from_env(cls) -> "FaultSpec":
+        blob = os.environ.get(ENV_VAR)
+        if not blob:
+            return cls()
+        try:
+            raw = json.loads(blob)
+        except (json.JSONDecodeError, TypeError):
+            return cls()
+        return cls(
+            forkserver=raw.get("forkserver"),
+            heartbeat_delay_s=float(raw.get("heartbeat_delay_s", 0.0)),
+            drop_rpc=raw.get("drop_rpc"),
+            corrupt_chunk=raw.get("corrupt_chunk"),
+            truncate_spill=raw.get("truncate_spill"),
+            drop_fetch_reply=raw.get("drop_fetch_reply"),
+            partition=raw.get("partition"),
+        )
+
+
+_spec_cache: Optional[FaultSpec] = None
+
+# Per-process every-Nth counters for the data-plane faults (deterministic,
+# like make_drop_filter's per-connection counts).
+_counters: Dict[str, int] = {}
+
+
+def _every_nth(name: str, fault: Any) -> bool:
+    """True on the Nth, 2Nth, ... consultation of ``name`` while ``fault``
+    is active.  Accepts {"every": N}, a bare int N, or true (N=1)."""
+    if not fault:
+        return False
+    if isinstance(fault, dict):
+        every = int(fault.get("every", 1))
+    elif isinstance(fault, bool):
+        every = 1
+    else:
+        every = int(fault)
+    n = _counters.get(name, 0) + 1
+    _counters[name] = n
+    return every > 0 and n % every == 0
+
+
+def spec() -> FaultSpec:
+    """The process's active fault spec (cached env parse)."""
+    global _spec_cache
+    if _spec_cache is None:
+        _spec_cache = FaultSpec.from_env()
+    return _spec_cache
+
+
+def set_spec(**kwargs) -> FaultSpec:
+    """In-process override for unit tests (does not touch the env, so
+    subprocesses are unaffected).  Pair with clear_spec()."""
+    global _spec_cache, _partition_anchor, _preempt_anchor
+    _spec_cache = FaultSpec(**kwargs)
+    _counters.clear()
+    _partition_anchor = None
+    _preempt_anchor = None
+    return _spec_cache
+
+
+def clear_spec() -> None:
+    global _spec_cache, _partition_anchor, _preempt_anchor
+    _spec_cache = None
+    _counters.clear()
+    _partition_anchor = None
+    _preempt_anchor = None
+
+
+def env_for(**kwargs) -> Dict[str, str]:
+    """Env fragment that activates the given faults in a subprocess:
+    ``Cluster.add_node(env=fault_injection.env_for(forkserver="wedge"))``."""
+    return {ENV_VAR: json.dumps(kwargs)}
+
+
+def forkserver_fault() -> Tuple[str, float]:
+    """(mode, delay_s) for the forkserver template serve loop."""
+    fs = spec().forkserver
+    if not fs:
+        return "", 0.0
+    if isinstance(fs, str):
+        return fs, 0.0
+    return fs.get("mode", ""), float(fs.get("delay_s", 0.0))
+
+
+def heartbeat_delay_s() -> float:
+    """Extra delay injected before each raylet heartbeat."""
+    return spec().heartbeat_delay_s
+
+
+_partition_anchor: Optional[float] = None
+
+
+def partition_window(conn_name: str) -> Optional[Tuple[float, Optional[float]]]:
+    """Absolute monotonic ``(start, end)`` of the partition window for
+    connections named ``conn_name``, or None when the active spec has no
+    partition fault matching it.  The window is anchored at the first
+    *matching* consultation in this process (connections dial during
+    daemon startup, so the anchor ≈ process start); ``end`` is None for a
+    heal-less (permanent) partition.  The protocol layer consults this
+    both to schedule the force-close of live matching connections and to
+    refuse redials while the window is open."""
+    global _partition_anchor
+    p = spec().partition
+    if not p or p.get("conn", "") not in (conn_name or ""):
+        return None
+    if _partition_anchor is None:
+        _partition_anchor = time.monotonic()
+    start = _partition_anchor + float(p.get("after_s", 0.0))
+    heal = p.get("heal_s")
+    return (start, None if heal is None else start + float(heal))
+
+
+def partition_active(conn_name: str) -> bool:
+    """True while ``conn_name`` is inside its partition window (dials must
+    fail)."""
+    win = partition_window(conn_name)
+    if win is None:
+        return False
+    start, end = win
+    now = time.monotonic()
+    return now >= start and (end is None or now < end)
+
+
+def make_drop_filter(conn_substr: str, every: int):
+    """Frame filter for ``protocol.set_frame_fault``: drops every
+    ``every``-th outgoing frame on connections whose name contains
+    ``conn_substr``.  Deterministic: per-connection counters."""
+    counts: Dict[int, int] = {}
+
+    def _filter(conn, payload: bytes) -> bool:
+        if conn_substr not in (conn.name or ""):
+            return False
+        n = counts.get(id(conn), 0) + 1
+        counts[id(conn)] = n
+        return every > 0 and n % every == 0
+
+    return _filter
+
+
+def corrupt_chunk(data: bytes) -> bytes:
+    """Chaos hook for the raylet's fetch-serving path: bit-flip the first
+    byte of every Nth chunk this process serves.  A single flipped bit is
+    the minimal corruption — anything the checksum machinery misses here
+    it would miss in the wild."""
+    if not data or not _every_nth("corrupt_chunk", spec().corrupt_chunk):
+        return data
+    flipped = bytearray(data)
+    flipped[0] ^= 0x01
+    return bytes(flipped)
+
+
+def drop_fetch_reply() -> bool:
+    """Chaos hook at fetch_object entry: True when this request should
+    fail.  The raylet raises (error reply) rather than staying silent so
+    the puller sees a prompt per-candidate failure instead of parking on
+    its RPC timeout."""
+    return _every_nth("drop_fetch_reply", spec().drop_fetch_reply)
+
+
+def truncate_spill(path: str) -> bool:
+    """Chaos hook after a durable spill write: truncate every Nth spill
+    file to ``keep`` (default half) of its on-disk size, simulating the
+    torn write the header+fsync protocol exists to catch.  Returns True
+    when the file was truncated."""
+    fault = spec().truncate_spill
+    if not _every_nth("truncate_spill", fault):
+        return False
+    keep = float(fault.get("keep", 0.5)) if isinstance(fault, dict) else 0.5
+    try:
+        size = os.path.getsize(path)
+        os.truncate(path, max(0, int(size * keep)))
+        return True
+    except OSError:
+        return False

@@ -1,7 +1,11 @@
 """Rules the PyTorch port keeps.
 
 * ``ray_tpu_torch/`` and ``chip_smoke.py`` import nothing of JAX and
-  nothing of the JAX package (they keep their own copies instead).
+  nothing of the JAX package (they keep their own copies instead), and
+  name no ``ray_tpu.`` module in a string either (``-m ray_tpu._private...``
+  would launch the JAX package's processes past the import check).
+* The port's runtime (``ray_tpu_torch/_private``) is clean under
+  ``ray_tpu``'s own linter, rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -11,6 +15,7 @@ import ast
 import asyncio
 import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -22,15 +27,19 @@ FORBIDDEN = {"jax", "jaxlib", "ray_tpu"}
 
 
 def _port_files():
-    # The kernel tests run on the card, which has no JAX, so they too; and
-    # the gang ranks of the multi-rank tests import _torch_gang.py alone.
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_flash_kernel.py",
-        ROOT / "tests" / "test_torch_flash_bwd_kernel.py",
-        ROOT / "tests" / "test_torch_splash_kernel.py",
-        ROOT / "tests" / "test_torch_llama_kernel.py",
-        ROOT / "tests" / "test_torch_moe_kernel.py",
-        ROOT / "tests" / "_torch_gang.py"]
+    # The kernel tests run on the card, which has no JAX, so they too; the
+    # gang ranks of the multi-rank tests import _torch_gang.py alone; and
+    # the runtime tests' modules are imported by the cluster's workers.
+    tests = ROOT / "tests"
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        tests / f"{name}.py" for name in (
+            "test_torch_flash_kernel", "test_torch_flash_bwd_kernel",
+            "test_torch_splash_kernel", "test_torch_llama_kernel",
+            "test_torch_moe_kernel", "_torch_gang", "_torch_runtime",
+            "test_torch_core_basic", "test_torch_actors",
+            "test_torch_placement_group", "test_torch_wire",
+            "test_torch_shm_hygiene", "test_torch_serialization",
+            "test_torch_gpu_resources", "test_torch_runtime_gpu")]
     assert len(files) > 10
     return files
 
@@ -53,6 +62,52 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in _port_files()}
     assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def _docstrings(tree):
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
+_JAX_PACKAGE_MODULE = re.compile(r"(?<![\w/.])ray_tpu\.[A-Za-z_]")
+
+
+def test_port_names_no_jax_package_module_in_a_string():
+    """A string naming a ``ray_tpu.`` module (``-m ray_tpu._private.x``,
+    ``importlib.import_module("ray_tpu.x")``, a pickled path) reaches the
+    JAX package past the import check.  Docstrings may cite it."""
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), str(path))
+        docs = _docstrings(tree)
+        bad += [f"{path.relative_to(ROOT)}:{node.lineno}: {node.value!r}"
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Constant)
+                and isinstance(node.value, str) and id(node) not in docs
+                and _JAX_PACKAGE_MODULE.search(node.value)]
+    assert not bad, bad
+
+
+def test_string_check_sees_a_launch_string():
+    tree = ast.parse('"""cites ray_tpu.util.metrics"""\n'
+                     'cmd = [exe, "-m", "ray_tpu._private.daemon_main"]\n')
+    docs = _docstrings(tree)
+    hits = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs
+            and _JAX_PACKAGE_MODULE.search(n.value)]
+    assert hits == ["ray_tpu._private.daemon_main"]
+
+
+def test_port_runtime_is_rtlint_clean():
+    from ray_tpu.tools.rtlint import lint_paths
+    result = lint_paths([str(PORT / "_private")])
+    assert not result.errors, result.errors
+    assert result.findings == [], [
+        f"{f.path}:{f.line} {f.rule}: {f.message}" for f in result.findings]
+    assert result.files_checked >= 25
 
 
 def _handlers(path):
@@ -162,3 +217,17 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
         return toks
 
     assert len(asyncio.run(run())) == 4
+
+
+def test_options_of_unported_modules_raise():
+    """runtime_env, the DAG (.bind) and timeline wait for their modules
+    (ROADMAP A8) and say so instead of doing something else."""
+    import ray_tpu_torch
+    from ray_tpu_torch.remote_function import _build_scheduling
+
+    with pytest.raises(NotImplementedError, match="runtime_env"):
+        _build_scheduling({"runtime_env": {"env_vars": {"A": "1"}}})
+    with pytest.raises(NotImplementedError, match="DAG"):
+        ray_tpu_torch.remote(lambda: 1).bind()
+    with pytest.raises(NotImplementedError, match="timeline"):
+        ray_tpu_torch.timeline()

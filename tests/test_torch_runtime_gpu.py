@@ -1,0 +1,84 @@
+"""The port's runtime on the card: steps 3-7 of chip_smoke.py's runtime
+phase at a small depth (GPT-2 at 2 layers, width 768, [2, 1024] tokens).
+
+A ``num_gpus=1`` actor takes the params through the object store, runs
+the bf16 forward on the flash kernel and hands its CUDA logits back; they
+equal the in-process forward's (bit for bit, else within its bf16 error);
+a second one-card actor waits for the first; a task without a card gets
+the logits as an equal CPU tensor.  The test needs a CUDA card and skips
+without one.  It imports nothing of JAX, so on the card it runs without
+the repo's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_runtime_gpu.py
+"""
+
+import dataclasses
+import os
+import sys
+
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch.models import (GPTConfig, gpt_init, params_from_jax,
+                                  params_to_numpy)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def card_cluster():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on the card run `python -m pytest "
+                    "--noconftest -m gpu tests/test_torch_runtime_gpu.py`")
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)       # chip_smoke.py; workers inherit it
+    import chip_smoke
+    if chip_smoke.shm_free_bytes() < chip_smoke.RUNTIME_STORE_BYTES:
+        pytest.fail(f"/dev/shm holds less than the "
+                    f"{chip_smoke.RUNTIME_STORE_BYTES}-byte store")
+    info = ray_tpu_torch.init(
+        num_cpus=4, object_store_memory=chip_smoke.RUNTIME_STORE_BYTES)
+    yield chip_smoke, info
+    ray_tpu_torch.shutdown()
+
+
+@pytest.mark.gpu
+def test_gpt_forward_in_a_gpu_actor_through_the_store(card_cluster):
+    chip_smoke, _ = card_cluster
+    assert ray_tpu_torch.cluster_resources()["GPU"] >= 1.0
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), num_layers=2,
+                              dtype=torch.bfloat16, attention="flash")
+    tree = params_to_numpy(gpt_init(0, cfg, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen)
+    out = chip_smoke.runtime_steps(torch.device("cuda", 0), cfg, tree,
+                                   tokens)
+    assert out["actor_launches"] == (2 * out["actor_forwards"], 0, 0, 0, 0,
+                                     0)
+    assert out["bit_identical"] or (out["max_abs_diff_vs_in_process"] <=
+                                    out["limit"])
+
+
+@pytest.mark.gpu
+def test_gpu_actor_params_land_on_its_card(card_cluster):
+    _, _ = card_cluster
+    cfg = GPTConfig.tiny(vocab=128, seq=64)
+    tree = params_to_numpy(gpt_init(0, cfg, device="cpu"))
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    class Holder:
+        def __init__(self, tree):
+            self.params = params_from_jax(tree, cfg)
+
+        def where(self):
+            return (os.environ["CUDA_VISIBLE_DEVICES"],
+                    str(self.params["wte"].device),
+                    self.params["wte"].float().sum().item())
+
+    h = Holder.remote(ray_tpu_torch.put(tree))
+    visible, device, total = ray_tpu_torch.get(h.where.remote(), timeout=300)
+    assert visible == os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+    assert device == "cuda:0"
+    assert total == pytest.approx(float(tree["wte"].sum()), rel=1e-5)
+    ray_tpu_torch.kill(h)
