@@ -52,17 +52,20 @@ Every phase prints one JSON line and any failure exits nonzero:
            step, samples/s, tokens/s, MFU; (e) a profile of one step
   top1_trained  the bf16 top-1 check on trained weights: GPT-2-small (the
            train phase's configuration) trained 300 AdamW steps (1e-3
-           after 30 warmup steps) at [8, 1024] on the bytes of the
-           repository's *.md files (the first 90%), then on 8 held-out
-           windows of the last 10%: the f32 forward's cross-entropy
-           beside two context-free baselines (unigram and bigram byte
-           frequencies of the training part), bf16 top-1 agreement of
-           flash with dense and of each with the f32 dense forward,
-           beside the forward phase's figures on random weights, and the
-           share of positions whose top-2 gap is under the bf16 logit
-           error; "c1_closed" when flash and dense agree on 99% and the
-           held-out loss is 0.3 nats under the bigram's; flash no further
-           from f32 than dense less half a point
+           after 30 warmup steps) on batches of 8 windows of 1024 bytes of
+           the repository's *.md files (the first 90%) and 8 windows of a
+           copy corpus made from a seed (spans of 64 bytes drawn from a
+           Zipf law, each followed by its copy); then, on each corpus's 8
+           held-out windows (the last 10% of the text; fresh copy windows):
+           the f32 forward's cross-entropy beside two context-free
+           baselines (unigram and bigram byte frequencies of the training
+           part), bf16 top-1 agreement of flash with dense and of each with
+           the f32 dense forward, beside the forward phase's figures on
+           random weights, and the share of positions whose top-2 gap is
+           under the bf16 logit error; "c1_closed" when, on the copy
+           corpus, flash and dense agree on 99% and the held-out loss is
+           0.3 nats under the better baseline; flash no further from f32
+           than dense less half a point on both
   llama_forward, llama_serve, llama_train_check, llama_train
            the same four phases (and their profiles) on LLaMA-125M (12
            layers, 12 query and 4 KV heads of 64, SwiGLU 2048, vocab 32000,
@@ -157,6 +160,28 @@ Every phase prints one JSON line and any failure exits nonzero:
            tensor; put/get GB/s of the params and the logits, the empty
            task round trip, init seconds; after shutdown no segment of
            the session is left
+  runtime_observe  the observers on that cluster: the "actors" pubsub
+           channel (subscribed before the first GPU actor starts) gives
+           the first actor's alive event before its dead one; a forward
+           under a driver span comes back from get_spans as the parent of
+           the actor's span; one forward with attention="auto" in the
+           actor, whose autotune counters reach autotune_totals() (the
+           driver's plus the actor's) through the metrics sink;
+           list_actors() shows both GPU actors (first DEAD, second ALIVE,
+           GPU: 1), list_tasks(name="forward") one FINISHED call and
+           timeline() one "X" event per forward call, each at least the
+           actor's own ms; the card in list_nodes(), node_stats() and
+           cluster_summary(); the wall ms of each observer call
+  runtime_node_death  a num_gpus=1 GPT actor (max_restarts=1) on a
+           cluster_utils.Cluster: a head with no card (its GCS given a
+           5 s reconnect grace) and a worker node given the card;
+           NodeKiller SIGKILLs the worker node and wait_node_dead sees
+           it; every process of the dead node exits and none holds the
+           card (nvidia-smi's compute apps, memory.used falling by at
+           least the actor's reserved memory); a new node with the card
+           joins and the actor restarts there with logits bit-identical to
+           its logits before the kill; seconds to detect, to free the card
+           and to restart (torch import, CUDA init and params split out)
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -1536,25 +1561,47 @@ class GPTActor:
         return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "device": torch.cuda.get_device_name(0),
                 "params_device": str(self.params["wte"].device),
+                "node_id": os.environ.get("RT_NODE_ID"),
+                "reserved_bytes": torch.cuda.memory_reserved(),
                 "pid": os.getpid(), **self.start}
 
     def forward(self, tokens, timed=5) -> dict:
         """One forward kept for ``logits``, then ``timed`` more timed; the
-        launch counts are this process's, set to 0 before the first."""
+        launch counts are this process's, set to 0 before the first.
+        ``ms_total`` is the wall time of all of them, the kept one too."""
         import torch
         from ray_tpu_torch.models import gpt_forward
         tokens = tokens.to("cuda")
         reset_launch_counts()
+        t0 = time.perf_counter()
         self.logits = gpt_forward(self.params, tokens, self.cfg)
         torch.cuda.synchronize()
-        times = []
+        times = [(time.perf_counter() - t0) * 1e3]
         for _ in range(timed):
             t0 = time.perf_counter()
             gpt_forward(self.params, tokens, self.cfg)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         return {"launches": launch_counts(), "forwards": timed + 1,
-                "ms": statistics.median(times)}
+                "ms": statistics.median(times[1:]) if timed else None,
+                "ms_total": sum(times)}
+
+    def forward_auto(self, tokens) -> dict:
+        """One forward with attention="auto", held to the kept flash
+        logits; its launches, and this process's autotune counters after
+        they are flushed to the GCS."""
+        import torch
+        from ray_tpu_torch.autotune import metrics as autotune_metrics
+        from ray_tpu_torch.models import gpt_forward
+        from ray_tpu_torch.util import metrics as user_metrics
+        reset_launch_counts()
+        logits = gpt_forward(self.params, tokens.to("cuda"),
+                             dataclasses.replace(self.cfg, attention="auto"))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        user_metrics.flush()
+        return {"launches": launches, "autotune": autotune_metrics.stats(),
+                "same_as_flash": bool(torch.equal(logits, self.logits))}
 
     def get_logits(self):
         return self.logits
@@ -1606,11 +1653,13 @@ def in_process_forward(dev, cfg, tree, tokens, timed=5):
 
 def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
     """Steps 3-7 of the runtime phase on a running cluster: the params
-    through the store to a num_gpus=1 actor, its forward, the second actor
+    through the store to a num_gpus=1 actor, its forward, the observers
+    (``observe_first_actor``, ``observe_records``), the second actor
     waiting on the card, and a task without a card.  ``limit`` bounds the
     actor's logits against the in-process forward's when they are not
     bit-identical (default: the in-process bf16-against-f32 error).
-    Returns the phase's numbers, the actor's launch counts among them."""
+    Returns the phase's numbers, the actor's launch counts among them and
+    the runtime_observe numbers under ``observe``."""
     import os
 
     import torch
@@ -1640,6 +1689,13 @@ def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
                                                      t0) / 1e9
     check(torch.equal(got["wte"], tensors["wte"]), "tensor tree changed")
     del tensors, tensors_ref, got
+
+    # The observers (runtime_observe): the "actors" channel's events from
+    # before the first GPU actor starts.
+    from ray_tpu_torch.util import pubsub
+    actor_events = []
+    pubsub.subscribe("actors", lambda ev: actor_events.append(
+        (ev.get("event"), (ev.get("actor") or {}).get("actor_id"))))
 
     actor_cls = rt.remote(GPTActor)
     t0 = time.perf_counter()
@@ -1691,6 +1747,8 @@ def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
     check(same or diff <= limit,
           f"actor logits differ from the in-process forward's by {diff} "
           f"(limit {limit})")
+    observe, traced, auto = observe_first_actor(first, tokens, cfg)
+    forward_calls = [fwd, traced]
 
     # The card is held: a second one-card actor waits for the first.
     second = actor_cls.options(num_gpus=1).remote(tree_ref, fields)
@@ -1710,9 +1768,13 @@ def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
     logits2_ref = second.get_logits.remote()
     check(torch.equal(rt.get(logits2_ref), logits),
           "the second actor's logits differ from the first's")
-    out["actor_launches"] = tuple(a + b for a, b in
-                                  zip(fwd["launches"], fwd2["launches"]))
-    out["actor_forwards"] += fwd2["forwards"]
+    forward_calls.append(fwd2)
+    out["actor_launches"] = tuple(map(sum, zip(
+        auto["launches"], *(c["launches"] for c in forward_calls))))
+    out["actor_forwards"] = 1 + sum(c["forwards"] for c in forward_calls)
+    records = observe_records(first, second, forward_calls, actor_events)
+    observe["wall_ms"].update(records.pop("wall_ms"))
+    out["observe"] = {**observe, **records}
 
     # A task without a card gets the CUDA logits as an equal CPU tensor.
     probe = rt.get(rt.remote(num_gpus=0)(cpu_probe).remote(logits2_ref),
@@ -1732,6 +1794,314 @@ def runtime_steps(dev, cfg, tree, tokens, limit=None) -> dict:
     for _ in range(n):
         rt.get(task.remote())
     out["empty_task_round_trip_us"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def timed_call(walls, key, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall ms kept in ``walls[key]``."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    walls[key] = (time.perf_counter() - t0) * 1e3
+    return result
+
+
+def observe_first_actor(first, tokens, cfg):
+    """The observers on the live first GPU actor: one forward under a
+    driver span (the actor's span must come back as its child from
+    get_spans), then one forward with attention="auto", whose autotune
+    counters must reach autotune_totals() through the metrics sink.
+    Returns (the runtime_observe numbers so far, the traced call's
+    result, the auto call's result)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autotune import metrics as autotune_metrics
+    from ray_tpu_torch.util import state, tracing
+    walls = {}
+    tracing.enable()
+    with tracing.span("driver:forward") as (trace_id, root_id):
+        traced = rt.get(first.forward.remote(tokens, timed=0), timeout=600)
+    tracing.disable()
+    deadline = time.monotonic() + 30
+    while True:
+        spans = timed_call(walls, "get_spans", tracing.get_spans,
+                           trace_id=trace_id)
+        if len(spans) >= 2 or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    by_name = {sp["name"]: sp for sp in spans}
+    check(set(by_name) == {"driver:forward", "actor:forward"} and
+          len(spans) == 2, f"trace {trace_id} holds {sorted(by_name)}")
+    check(by_name["driver:forward"]["parent_id"] is None and
+          by_name["driver:forward"]["span_id"] == root_id and
+          by_name["actor:forward"]["parent_id"] == root_id,
+          f"the actor's span is not the driver span's child: {spans}")
+
+    auto = rt.get(first.forward_auto.remote(tokens), timeout=600)
+    check(auto["launches"] == (cfg.num_layers, 0, 0, 0, 0, 0) and
+          auto["same_as_flash"],
+          f"attention='auto' in the actor: {auto}")
+    # The driver's own counters (its autotune phase) flush through the same
+    # sink once it is connected, so the totals are the driver's plus the
+    # actor's; the raylets tune nothing.
+    mine = autotune_metrics.stats()
+    want = {k: mine[k] + auto["autotune"][k] for k in mine}
+
+    def summed(totals):
+        # stats() rounds the tuning ms to 3 decimals in each process
+        return totals.keys() == want.keys() and all(
+            abs(totals[k] - want[k]) <= (1e-3 if k.endswith("_ms") else 0)
+            for k in want)
+
+    deadline = time.monotonic() + 30
+    while True:
+        totals = timed_call(walls, "autotune_totals", state.autotune_totals)
+        if summed(totals) or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    check(summed(totals), f"autotune_totals() {totals} is not the driver's "
+          f"{mine} plus the actor's {auto['autotune']}")
+    observe = {"trace_id": trace_id, "spans": len(spans),
+               "actor_span_ms": (by_name["actor:forward"]["end"] -
+                                 by_name["actor:forward"]["start"]) * 1e3,
+               "autotune_actor": auto["autotune"],
+               "autotune_driver": mine, "autotune_totals": totals,
+               "auto_launches": auto["launches"], "wall_ms": walls}
+    return observe, traced, auto
+
+
+def observe_records(first, second, forward_calls, actor_events):
+    """The state API after the first actor's kill and the second's
+    forward: both GPU actors in list_actors() (first DEAD, second ALIVE,
+    each with GPU: 1), one FINISHED list_tasks entry and one timeline "X"
+    event per forward call, each event at least as long as the actor's own
+    ms for that call, the node's card in list_nodes(), node_stats() and
+    cluster_summary(), and the first actor's alive event before its dead
+    one on the "actors" channel."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state
+    walls = {}
+    ids = (first._actor_id, second._actor_id)
+    deadline = time.monotonic() + 30
+    while ("dead", ids[0]) not in actor_events:
+        check(time.monotonic() < deadline, f"no dead event for the killed "
+              f"actor on the actors channel: {actor_events}")
+        time.sleep(0.1)
+    mine = [e for e, a in actor_events if a == ids[0]]
+    check(mine.index("alive") < mine.index("dead"),
+          f"the first actor's events came as {mine}")
+    actors = {a["actor_id"]: a for a in timed_call(walls, "list_actors",
+                                                   state.list_actors)}
+    for aid, want in zip(ids, ("DEAD", "ALIVE")):
+        rec = actors.get(aid) or {}
+        check(rec.get("state") == want and
+              rec.get("resources", {}).get("GPU") == 1,
+              f"list_actors() shows {rec}, not {want} with GPU: 1")
+    n_calls = len(forward_calls)
+    deadline = time.monotonic() + 30
+    while True:
+        tasks = timed_call(walls, "list_tasks", state.list_tasks,
+                           name="forward", kind="actor_call")
+        if len(tasks) >= n_calls or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(len(tasks) == n_calls and
+          all(t["status"] == "FINISHED" for t in tasks),
+          f"list_tasks(name='forward') holds "
+          f"{[(t['actor_id'], t['status']) for t in tasks]}, not "
+          f"{n_calls} FINISHED calls")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "timeline.json")
+        timed_call(walls, "timeline", rt.timeline, path)
+        with open(path) as f:
+            events = [e for e in json.load(f) if e["name"] == "forward"]
+    events.sort(key=lambda e: e["ts"])
+    # The calls ran one after another, first's two then second's one.
+    want_tids = [ids[0]] * (n_calls - 1) + [ids[1]]
+    check([e["ph"] for e in events] == ["X"] * n_calls and
+          [e["tid"] for e in events] == want_tids,
+          f"timeline 'forward' events {[(e['ph'], e['tid']) for e in events]}")
+    durs_ms = [e["dur"] / 1e3 for e in events]
+    own_ms = [c["ms_total"] for c in forward_calls]
+    check(all(d >= o for d, o in zip(durs_ms, own_ms)),
+          f"timeline durations {durs_ms} ms are shorter than the actor's "
+          f"own {own_ms} ms")
+    nodes = [n for n in timed_call(walls, "list_nodes", state.list_nodes)
+             if n["alive"]]
+    stats = timed_call(walls, "node_stats", state.node_stats)
+    summary = timed_call(walls, "cluster_summary", state.cluster_summary)
+    check(len(nodes) == 1 and nodes[0]["resources_total"].get("GPU") == 1,
+          f"list_nodes() shows {nodes}")
+    node_id = nodes[0]["node_id"]
+    workers = {w.get("actor_id") for w in stats.get(node_id, {}).get(
+        "workers", [])}
+    check(ids[1] in workers, f"node_stats() lists no worker of the live "
+          f"GPU actor on {node_id[:12]}")
+    check(summary["resources"]["total"].get("GPU") == 1 and
+          summary["actors"]["total"] >= 2 and summary["nodes"]["alive"] == 1,
+          f"cluster_summary() shows {summary}")
+    return {"actors_channel": mine, "list_tasks_forward": len(tasks),
+            "timeline_forward_ms": durs_ms, "actor_forward_ms": own_ms,
+            "node_gpu_total": nodes[0]["resources_total"]["GPU"],
+            "summary_gpu_total": summary["resources"]["total"]["GPU"],
+            "wall_ms": walls}
+
+
+# The head's GCS holds a node whose connection dropped for this long before
+# it records the node dead (node_reconnect_grace_s, 30 s by default): the
+# node-death step sets it short, and its line names the value.
+NODE_DEATH_GRACE_S = 5.0
+
+
+def smi_query(*args) -> list:
+    """nvidia-smi's CSV rows (no header, no units) for one query."""
+    out = subprocess.run(
+        ["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [[c.strip() for c in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+
+
+def card_apps() -> dict:
+    """pid -> MiB of each process nvidia-smi lists on the card."""
+    return {int(pid): int(mib) for pid, mib in smi_query(
+        "--query-compute-apps=pid,used_memory") if pid.isdigit()}
+
+
+def card_used_mib() -> int:
+    return int(smi_query("--query-gpu=memory.used")[0][0])
+
+
+def process_gone(pid: int) -> bool:
+    """True once ``pid`` has exited (a zombie holds no card memory)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except FileNotFoundError:
+        return True
+
+
+def runtime_node_death(dev, cfg, tree, tokens) -> dict:
+    """A num_gpus=1 GPT actor (max_restarts=1) survives its node's death,
+    on a cluster_utils.Cluster: a head that advertises no card (a Cluster's
+    nodes detect none; the head is given none) and a worker node given the
+    card.  NodeKiller SIGKILLs the worker node's daemon and wait_node_dead
+    sees the GCS record it; every process of the dead node must exit, and
+    none may still hold the card's memory (nvidia-smi's compute apps and
+    memory.used); a new node with the card joins, the actor restarts there
+    and its logits are bit-identical to its logits before the kill."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.exceptions import ActorError, GetTimeoutError
+    from ray_tpu_torch.util import fault_injection, state
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+    check(visible == "0", f"CUDA_VISIBLE_DEVICES={visible!r}: a Cluster "
+          f"node given one card names it 0")
+    out = {"reconnect_grace_s": NODE_DEATH_GRACE_S}
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={
+        "num_cpus": 2, "object_store_memory": RUNTIME_STORE_BYTES,
+        "env": {"RT_NODE_RECONNECT_GRACE_S": str(NODE_DEATH_GRACE_S)}})
+    try:
+        rt.init(address=cluster.address)
+        head_res = rt.cluster_resources()
+        check(head_res.get("GPU", 0) == 0,
+              f"the head advertises a card: {head_res}")
+        node = cluster.add_node(num_cpus=2, resources={"GPU": 1.0},
+                                object_store_memory=RUNTIME_STORE_BYTES)
+        cluster.wait_for_nodes()
+        check(rt.cluster_resources().get("GPU") == 1.0,
+              f"the cluster advertises {rt.cluster_resources()}")
+        out["cluster_start_s"] = time.perf_counter() - t0
+        actor = rt.remote(GPTActor).options(num_gpus=1, max_restarts=1).remote(
+            rt.put(tree), gpt_fields(cfg))
+        t0 = time.perf_counter()
+        info = rt.get(actor.info.remote(), timeout=600)
+        out["actor_cold_start_s"] = time.perf_counter() - t0
+        check(info["node_id"] == node.node_id and
+              info["cuda_visible_devices"] == "0",
+              f"the GPU actor runs on {info['node_id']} with "
+              f"CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']!r}")
+        fwd = rt.get(actor.forward.remote(tokens, timed=0), timeout=600)
+        check(fwd["launches"] == (cfg.num_layers, 0, 0, 0, 0, 0),
+              f"the actor's forward launched {fwd['launches']}")
+        before = rt.get(actor.get_logits.remote(), timeout=600)
+        reserved = rt.get(actor.info.remote(), timeout=60)["reserved_bytes"]
+        apps_before = card_apps()
+        used_before = card_used_mib()
+        dead_pids = [info["pid"], node.proc.pid]
+
+        killer = fault_injection.NodeKiller()
+        t0 = time.perf_counter()
+        killed = killer.kill_node(node.node_id, wait=False)
+        check(killed["pid"] == node.proc.pid,
+              f"NodeKiller killed pid {killed['pid']}, not the node's "
+              f"{node.proc.pid}")
+        fault_injection.wait_node_dead(node.node_id, timeout=120)
+        out["detect_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while not all(process_gone(p) for p in dead_pids) or (
+                set(card_apps()) & set(dead_pids)):
+            check(time.monotonic() < deadline,
+                  f"a process of the dead node lives on or holds the card: "
+                  f"{[p for p in dead_pids if not process_gone(p)]}, "
+                  f"{card_apps()}")
+            time.sleep(0.2)
+        out["card_freed_s"] = time.perf_counter() - t0
+        apps_after = card_apps()
+        used_after = card_used_mib()
+        check(used_before - used_after >= reserved // 2**20,
+              f"the card's memory.used fell from {used_before} to "
+              f"{used_after} MiB, less than the dead actor's "
+              f"{reserved // 2**20} MiB reserved")
+
+        t0 = time.perf_counter()
+        new = cluster.add_node(num_cpus=2, resources={"GPU": 1.0},
+                               object_store_memory=RUNTIME_STORE_BYTES)
+        out["node_join_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 600
+        while True:
+            try:
+                info2 = rt.get(actor.info.remote(), timeout=30)
+            except (ActorError, GetTimeoutError):
+                info2 = None
+            if info2 is not None and info2["node_id"] == new.node_id:
+                break
+            check(time.monotonic() < deadline,
+                  f"the actor never restarted on {new.node_id[:12]}")
+            time.sleep(0.2)
+        out["restart_s"] = time.perf_counter() - t0
+        fwd2 = rt.get(actor.forward.remote(tokens, timed=0), timeout=600)
+        after = rt.get(actor.get_logits.remote(), timeout=600)
+        check(fwd2["launches"] == fwd["launches"],
+              f"the restarted actor launched {fwd2['launches']}")
+        check(after.dtype == before.dtype and torch.equal(after, before),
+              "the restarted actor's logits differ from its logits before "
+              "the kill")
+        rec = next(a for a in state.list_actors()
+                   if a["actor_id"] == actor._actor_id)
+        check(rec["state"] == "ALIVE" and rec["num_restarts"] == 1,
+              f"list_actors() shows {rec}")
+        rt.kill(actor)
+        out.update(
+            actor_launches=tuple(a + b for a, b in zip(fwd["launches"],
+                                                        fwd2["launches"])),
+            restart_import_torch_s=info2["import_torch_s"],
+            restart_cuda_init_s=info2["cuda_init_s"],
+            restart_params_s=info2["params_s"],
+            first_start=info, dead_pids=dead_pids,
+            actor_reserved_mib=reserved / 2**20,
+            card_used_mib_before_kill=used_before,
+            card_used_mib_after_kill=used_after,
+            card_apps_before_kill=apps_before, card_apps_after_kill=apps_after,
+            # nvidia-smi names processes by pid as the host sees them: in
+            # a container its list may match no pid here (the memory
+            # check then carries the card's half of the proof)
+            card_apps_name_this_process=os.getpid() in apps_before,
+            bit_identical_after_restart=True)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
     return out
 
 
@@ -1784,9 +2154,17 @@ def phase_runtime(dev, cfg, limit, smi):
     left = [e for e in os.listdir("/dev/shm")
             if re.match(rf"rtt?_{info['pid']}_", e)]
     check(left == [], f"the session left segments {left}")
+    observe = out.pop("observe")
     emit("runtime", card=smi, init_s=init_s, resources=res,
          store_bytes=RUNTIME_STORE_BYTES, shm_free_bytes=free,
          tokens=list(RUNTIME_TOKENS), **out)
+    emit("runtime_observe", card=smi, **observe)
+    t0 = time.perf_counter()
+    death = runtime_node_death(dev, cfg, tree, tokens)
+    emit("runtime_node_death", card=smi,
+         step_s=time.perf_counter() - t0, **death)
+    out["actor_launches"] = tuple(a + b for a, b in zip(
+        out["actor_launches"], death["actor_launches"]))
     return out
 
 
@@ -2145,54 +2523,33 @@ def byte_baselines(train, targets_prev, targets):
 # How far below the bigram baseline (nats a byte, held out) the trained
 # model's loss must be for its top-1 figures to count as trained weights.
 TOP1_BELOW_BIGRAM = 0.3
+# The copy corpus: windows of [span | its copy] pairs, each span COPY_SPAN
+# bytes drawn from a Zipf law over the 256 byte values (p ~ 1/rank, ranks a
+# seeded permutation).  A copy byte is predictable only through attention
+# (64 positions back); a span byte's best guess is the most likely value,
+# ahead of the next by ln 2 nats, so its top-1 does not hang on a tie.
+COPY_SPAN = 64
 
 
-def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
-                       eval_rows=8, lr=1e-3, warmup=30):
-    """The bf16 top-1 check on trained weights.  GPT-2-small (``cfg``, the
-    bf16 flash training configuration) trains ``steps`` AdamW steps at
-    [B, S] on byte tokens (ids < 256) of the first 90% of
-    ``repo_text_bytes()``, windows drawn from seed SEED + 5, learning rate
-    ``lr`` after a linear warmup.  Then, on ``eval_rows`` held-out windows
-    of the last 10%: the f32 forward's cross-entropy beside the unigram
-    and bigram baselines (``byte_baselines``), top-1 agreement of the
-    flash bf16 forward with the dense bf16 forward and of each with the
-    f32 dense forward, beside ``random_top1`` (the forward phase's figures
-    on random weights), and the share of positions whose f32 top-2 logit
-    gap is under the bf16 forwards' logit error (their max |bf16 - f32|
-    over the held-out logits).  ROADMAP C1 counts as closed when flash and
-    dense bf16 agree on 99% of the positions and the held-out loss is
-    ``TOP1_BELOW_BIGRAM`` under the bigram baseline.  The hard limit is
-    the forward phase's: flash bf16 no further from f32 than dense bf16,
-    less half a point.  Returns the phase's fields."""
+def copy_task_rows(gen, n, S, probs, span=COPY_SPAN):
+    """``n`` windows of S + 1 byte tokens: spans and their copies, the
+    window starting on a span."""
     import torch
-    fam = family(cfg)
-    text, names = repo_text_bytes()
-    data = torch.tensor(list(text), dtype=torch.long)
-    cut = int(len(data) * 0.9)
-    train, held = data[:cut], data[cut:]
-    check(len(held) >= eval_rows * S + 1 and len(train) > 8 * S,
-          f"{len(data)} bytes of text are too few for [{B}, {S}] windows")
-    params, opt = fam.train_state(SEED, cfg, learning_rate=lr,
-                                  weight_decay=0.0, device=dev)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda i: min(1.0, (i + 1) / warmup))
-    step = fam.train_step(cfg, opt)
-    gen = torch.Generator().manual_seed(SEED + 5)
-    t0 = time.perf_counter()
-    losses = []
-    for i in range(steps):
-        starts = torch.randint(0, len(train) - S - 1, (B,), generator=gen)
-        batch = {"tokens": torch.stack(
-            [train[j:j + S + 1] for j in starts.tolist()]).to(dev)}
-        m = step(params, batch)
-        sched.step()
-        if i % 50 == 0 or i == steps - 1:
-            losses.append(float(m["loss"]))
-    sync(dev)
-    train_s = time.perf_counter() - t0
-    windows = torch.stack([held[i * S:(i + 1) * S + 1]
-                           for i in range(eval_rows)])
+    pairs = -(-(S + 1) // (2 * span))
+    spans = torch.multinomial(probs, n * pairs * span, replacement=True,
+                              generator=gen).view(n, pairs, 1, span)
+    return spans.expand(n, pairs, 2, span).reshape(n, -1)[:, :S + 1]
+
+
+def top1_figures(dev, fam, params, cfg, windows, train):
+    """Held-out figures of one corpus on ``windows`` [rows, S + 1]: the f32
+    dense forward's cross-entropy beside the unigram and bigram baselines
+    fitted on ``train``, bf16 top-1 agreement of flash with dense and of
+    each with f32, the bf16 logit error and the share of positions whose
+    f32 top-2 gap is under it, and whether the corpus closes ROADMAP C1
+    (loss TOP1_BELOW_BIGRAM under the better baseline, and flash with
+    dense on 99% of the positions)."""
+    import torch
     tokens, targets = windows[:, :-1].to(dev), windows[:, 1:]
     with torch.no_grad():
         logits = {name: fam.forward(params, tokens, dataclasses.replace(
@@ -2214,28 +2571,95 @@ def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
                                             .mean())
              for a, b in (("flash", "dense"), ("flash", "f32"),
                           ("dense", "f32"))}
-    trained = held_ce <= bigram_ce - TOP1_BELOW_BIGRAM
-    fields = dict(
-        texts=names, bytes_train=len(train), bytes_held_out=len(held),
-        batch=B, seq=S, steps=steps, learning_rate=lr, warmup_steps=warmup,
-        train_s=train_s, losses_every_50=losses,
-        held_out_positions=eval_rows * S, held_out_ce=held_ce,
+    # The better of the two context-free baselines: on the copy corpus the
+    # bigram table (65,536 cells from ~2.5M bytes of independent span
+    # bytes) fits noise and falls behind the unigram, which a model reaches
+    # without attention.
+    context_free_ce = min(unigram_ce, bigram_ce)
+    trained = held_ce <= context_free_ce - TOP1_BELOW_BIGRAM
+    return dict(
+        held_out_positions=targets.numel(), held_out_ce=held_ce,
         unigram_ce=unigram_ce, bigram_ce=bigram_ce,
-        below_bigram_required=TOP1_BELOW_BIGRAM, trained=trained, **agree,
+        context_free_ce=context_free_ce, trained=trained, **agree,
         bf16_max_logit_err=err,
         share_top2_gap_under_bf16_err=float((gap < err).float().mean()),
         f32_top2_gap_p05=float(torch.quantile(gap.flatten().float(), 0.05)),
-        random_weights=random_top1, c1_closed=trained and agree[
-            "bf16_top1_flash_vs_dense"] >= 0.99,
+        c1_holds=trained and agree["bf16_top1_flash_vs_dense"] >= 0.99)
+
+
+def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
+                       eval_rows=8, lr=1e-3, warmup=30, copy_rows=8,
+                       span=COPY_SPAN):
+    """The bf16 top-1 check on trained weights.  GPT-2-small (``cfg``, the
+    bf16 flash training configuration) trains ``steps`` AdamW steps on
+    byte tokens (ids < 256), learning rate ``lr`` after a linear warmup;
+    each step's batch holds ``B`` windows of S + 1 bytes of the first 90%
+    of ``repo_text_bytes()`` (drawn from seed SEED + 5) and ``copy_rows``
+    windows of the copy corpus (``copy_task_rows``, from seed SEED + 6).
+    Then ``top1_figures`` on each corpus's held-out windows: ``eval_rows``
+    of the last 10% of the text, and ``eval_rows`` fresh copy windows from
+    seed SEED + 7, beside ``random_top1`` (the forward phase's figures on
+    random weights).  ROADMAP C1 counts as closed when the copy corpus,
+    where the answer needs attention, holds both of its limits; the text
+    corpus's figures are kept beside it.  The hard limit is the forward
+    phase's, on both corpora: flash bf16 no further from f32 than dense
+    bf16, less half a point.  Returns the phase's fields."""
+    import torch
+    fam = family(cfg)
+    text, names = repo_text_bytes()
+    data = torch.tensor(list(text), dtype=torch.long)
+    cut = int(len(data) * 0.9)
+    train, held = data[:cut], data[cut:]
+    check(len(held) >= eval_rows * S + 1 and len(train) > 8 * S,
+          f"{len(data)} bytes of text are too few for [{B}, {S}] windows")
+    ranks = torch.randperm(256, generator=torch.Generator().manual_seed(
+        SEED + 6))
+    probs = (1.0 / (ranks.double() + 1))
+    probs /= probs.sum()
+    copy_gen = torch.Generator().manual_seed(SEED + 6)
+    params, opt = fam.train_state(SEED, cfg, learning_rate=lr,
+                                  weight_decay=0.0, device=dev)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda i: min(1.0, (i + 1) / warmup))
+    step = fam.train_step(cfg, opt)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    losses, copy_train = [], []
+    for i in range(steps):
+        starts = torch.randint(0, len(train) - S - 1, (B,), generator=gen)
+        copies = copy_task_rows(copy_gen, copy_rows, S, probs, span)
+        copy_train.append(copies)
+        batch = {"tokens": torch.cat([torch.stack(
+            [train[j:j + S + 1] for j in starts.tolist()]), copies]).to(dev)}
+        m = step(params, batch)
+        sched.step()
+        if i % 50 == 0 or i == steps - 1:
+            losses.append(float(m["loss"]))
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    text_fig = top1_figures(dev, fam, params, cfg, torch.stack(
+        [held[i * S:(i + 1) * S + 1] for i in range(eval_rows)]), train)
+    copy_fig = top1_figures(dev, fam, params, cfg, copy_task_rows(
+        torch.Generator().manual_seed(SEED + 7), eval_rows, S, probs, span),
+        torch.cat(copy_train).flatten())
+    fields = dict(
+        texts=names, bytes_train=len(train), bytes_held_out=len(held),
+        batch=B, copy_rows=copy_rows, copy_span=span, seq=S,
+        steps=steps, learning_rate=lr, warmup_steps=warmup,
+        train_s=train_s, losses_every_50=losses,
+        below_bigram_required=TOP1_BELOW_BIGRAM, **text_fig,
+        copy_task=copy_fig, random_weights=random_top1,
+        c1_closed=copy_fig["c1_holds"],
         card=nvidia_smi_line() if dev.type == "cuda" else None)
     emit("top1_trained", **fields)
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"byte training did not learn: {losses}")
-    check(agree["bf16_top1_flash_vs_f32"] >=
-          agree["bf16_top1_dense_vs_f32"] - 0.005,
-          "trained: bf16 flash top-1 further from the f32 forward than "
-          "dense's")
-    del params, opt, logits, f32
+    for name, fig in (("text", text_fig), ("copy", copy_fig)):
+        check(fig["bf16_top1_flash_vs_f32"] >=
+              fig["bf16_top1_dense_vs_f32"] - 0.005,
+              f"trained ({name} corpus): bf16 flash top-1 further from the "
+              f"f32 forward than dense's")
+    del params, opt
     empty_cache(dev)
     return fields
 

@@ -184,12 +184,10 @@ def nodes() -> List[dict]:
     return get_core().gcs_request({"type": "get_nodes"})
 
 
-def timeline(filename=None):
-    """Chrome-trace JSON of task executions (reference: `ray timeline`).
-    It reads the state API, which is not ported yet."""
-    raise NotImplementedError(
-        "timeline needs util/state, which is not ported to ray_tpu_torch yet "
-        "(ROADMAP A8)")
+def timeline(filename: Optional[str] = None) -> List[dict]:
+    """Chrome-trace JSON of task executions (reference: `ray timeline`)."""
+    from ray_tpu_torch.util.state import timeline as _timeline
+    return _timeline(filename)
 
 
 def usage_report() -> dict:

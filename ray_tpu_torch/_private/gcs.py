@@ -586,7 +586,12 @@ class GcsServer:
         stale = await self._reconcile_node_actors(node, msg.get("actors"))
         await self._publish("nodes", {"event": "alive", "node": node.public()})
         logger.info("node registered: %s at %s", node.node_id, node.address)
-        await self._try_schedule_pending()
+        # Fire and forget, as on a heartbeat: the raylet starts its
+        # heartbeats once this reply lands, and a pending actor's creation
+        # (a GPU worker's cold start: torch import, CUDA init, weights)
+        # can outlast the health timeout.
+        spawn(self._try_schedule_pending(), name="gcs-schedule-pending",
+              log=logger)
         return {"ok": True, "num_nodes": len(self.nodes),
                 "stale_actors": stale}
 
@@ -624,7 +629,8 @@ class GcsServer:
             "node": node.public()})
         logger.info("node %s re-registered at %s (reconnect #%d)",
                     node.node_id, node.address, node.reconnects)
-        await self._try_schedule_pending()
+        spawn(self._try_schedule_pending(), name="gcs-schedule-pending",
+              log=logger)
         return {"ok": True, "num_nodes": len(self.nodes),
                 "reconnected": True, "stale_actors": stale}
 

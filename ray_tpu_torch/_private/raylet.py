@@ -511,6 +511,11 @@ class Raylet:
             "node_disconnects": self._node_disconnects,
             "resync_objects_readvertised": self._resync_objects_readvertised,
         }
+        # Kernel-autotune counters (cache hits/misses, tune wall-clock) for
+        # THIS process; worker-process tuning reaches the GCS through the
+        # util.metrics sink instead.
+        from ray_tpu_torch.autotune import metrics as _autotune_metrics
+        out.update(_autotune_metrics.stats())
         # loop_lag_ms is merged by the caller on the loop thread —
         # LoopWatchdog.record() mutates watchdog state.
         return out

@@ -61,7 +61,7 @@ def _build_scheduling(opts: Dict[str, Any]) -> Dict[str, Any]:
         out = {"strategy": strategy}
     if opts.get("runtime_env"):
         raise NotImplementedError(
-            "runtime_env is not ported to ray_tpu_torch yet (ROADMAP A8)")
+            "runtime_env is not ported to ray_tpu_torch yet (ROADMAP A2)")
     return out
 
 
@@ -83,7 +83,7 @@ class RemoteFunction:
         """Lazy DAG node for this call (reference dag_node build surface:
         remote_function.py bind -> FunctionNode)."""
         raise NotImplementedError(
-            "the DAG (.bind) is not ported to ray_tpu_torch yet (ROADMAP A8)")
+            "the DAG (.bind) is not ported to ray_tpu_torch yet (ROADMAP A2)")
 
     def remote(self, *args, **kwargs):
         core = get_core()

@@ -7,3 +7,4 @@ from ray_tpu_torch.util.scheduling_strategies import (  # noqa: F401
     NodeAffinitySchedulingStrategy,
     PlacementGroupSchedulingStrategy,
 )
+from ray_tpu_torch.util.object_broadcast import broadcast  # noqa: F401

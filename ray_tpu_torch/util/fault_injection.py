@@ -4,7 +4,7 @@ Reference analog: ``python/ray/_private/test_utils.py`` NodeKillerActor
 (:1346) — the reference treats failure injection as a first-class,
 reusable API so chaos tests gate their assertions on *observed* cluster
 state (death recorded, recovery complete) instead of ad-hoc process
-kills plus wall-clock sleeps.
+kills plus wall-clock sleeps.  Two halves:
 
 * **Process-local hooks.**  A JSON spec in the ``RT_FAULT_INJECTION``
   env var, parsed once per process.  Daemons consult it at exactly three
@@ -17,9 +17,14 @@ kills plus wall-clock sleeps.
   see ``protocol.set_frame_fault``).  Start ONE node of a test cluster
   with ``env=env_for(...)`` to fault just that node.
 
-The observers and the NodeKiller of ``ray_tpu`` wait for the state API
-(``util/state``), which is not ported yet; nor are the serve and train
-hooks, whose callers are not ported either.
+* **NodeKiller.**  Kills node daemons by the pid each raylet registers
+  with the GCS, then waits for the GCS to record the death.  Usable
+  directly in a driver or as an actor via
+  ``ray_tpu_torch.remote(NodeKiller)``.
+
+The serve and train hooks of the reference (slow clients, stalled
+streams and decodes, preemption notices, slow checkpoint writes, and
+``kill_replica``/``kill_train_worker``) come with serve and train.
 
 Everything here is import-light (stdlib only at module load) because the
 forkserver template and the protocol layer import it inside daemons.
@@ -29,9 +34,10 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 ENV_VAR = "RT_FAULT_INJECTION"
 
@@ -238,3 +244,114 @@ def truncate_spill(path: str) -> bool:
         return True
     except OSError:
         return False
+
+
+# --------------------------------------------------------------- observers
+
+def _list_nodes() -> List[dict]:
+    from ray_tpu_torch.util import state
+    return state.list_nodes()
+
+
+def wait_node_dead(node_id: str, timeout: float = 120.0) -> dict:
+    """Block until the GCS records ``node_id`` as dead; returns its node
+    record.  This is the recovery gate chaos tests key on — wall-clock
+    sleeps race the health timeout, observed state does not.  Transient
+    query errors (a GCS briefly saturated on a loaded box) are retried
+    until the deadline, not propagated."""
+    deadline = time.monotonic() + timeout
+    last_err: Optional[Exception] = None
+    while time.monotonic() < deadline:
+        try:
+            for n in _list_nodes():
+                if n["node_id"] == node_id and not n["alive"]:
+                    return n
+            last_err = None
+        except Exception as e:
+            last_err = e
+        time.sleep(0.25)
+    raise TimeoutError(
+        f"node {node_id[:12]} not marked dead within {timeout}s"
+        + (f" (last query error: {last_err!r})" if last_err else ""))
+
+
+def wait_alive_nodes(count: int, timeout: float = 120.0) -> List[dict]:
+    """Block until exactly ``count`` nodes are alive per the GCS."""
+    deadline = time.monotonic() + timeout
+    alive: List[dict] = []
+    while time.monotonic() < deadline:
+        try:
+            alive = [n for n in _list_nodes() if n["alive"]]
+        except Exception:
+            alive = []
+        if len(alive) == count:
+            return alive
+        time.sleep(0.25)
+    raise TimeoutError(
+        f"expected {count} alive nodes within {timeout}s, have "
+        f"{len(alive)}")
+
+
+def wait_actor_dead(actor_id: str, timeout: float = 120.0) -> dict:
+    """Block until the GCS records ``actor_id`` as DEAD; returns its
+    actor record.  Same observed-state gating as wait_node_dead: chaos
+    tests assert on recorded death, not on wall-clock sleeps."""
+    from ray_tpu_torch.util import state
+    deadline = time.monotonic() + timeout
+    last_err: Optional[Exception] = None
+    while time.monotonic() < deadline:
+        try:
+            for a in state.list_actors():
+                if a.get("actor_id") == actor_id and \
+                        a.get("state") == "DEAD":
+                    return a
+            last_err = None
+        except Exception as e:
+            last_err = e
+        time.sleep(0.25)
+    raise TimeoutError(
+        f"actor {actor_id[:12]} not marked dead within {timeout}s"
+        + (f" (last query error: {last_err!r})" if last_err else ""))
+
+
+class NodeKiller:
+    """Kills node daemons and waits for the GCS to observe the death.
+
+    Plain class so a driver can use it inline; wrap with
+    ``ray_tpu_torch.remote(NodeKiller)`` to run it inside the cluster like the
+    reference NodeKillerActor (same-host clusters only: the kill is an
+    ``os.kill`` of the daemon pid the raylet registered)."""
+
+    def __init__(self):
+        self.killed: List[dict] = []
+
+    def alive_nodes(self, exclude_head: bool = True) -> List[dict]:
+        return [n for n in _list_nodes()
+                if n["alive"] and not (exclude_head and n.get("is_head"))]
+
+    def kill_node(self, node_id: Optional[str] = None, *,
+                  exclude_head: bool = True, wait: bool = True,
+                  timeout: float = 120.0) -> dict:
+        """SIGKILL the daemon of ``node_id`` (or the first live non-head
+        node).  With ``wait`` (default), returns only after the GCS has
+        marked the node dead — the caller can immediately assert on
+        recovery behavior without racing the health check."""
+        victims = self.alive_nodes(exclude_head=exclude_head)
+        if node_id is not None:
+            victims = [n for n in victims if n["node_id"] == node_id]
+        victims = [n for n in victims if n.get("pid")]
+        if not victims:
+            raise RuntimeError(
+                f"no killable node (node_id={node_id}, "
+                f"exclude_head={exclude_head})")
+        victim = victims[0]
+        os.kill(victim["pid"], signal.SIGKILL)
+        record = {"node_id": victim["node_id"], "pid": victim["pid"],
+                  "time": time.time()}
+        self.killed.append(record)
+        if wait:
+            wait_node_dead(victim["node_id"], timeout=timeout)
+        return record
+
+    def killed_nodes(self) -> List[dict]:
+        return list(self.killed)

@@ -15,8 +15,7 @@ How it flows:
     a driver span, the remote task's span, and any nested task's span
     form one tree across processes.
   * Finished spans ride the existing task-event pipeline to the GCS
-    (kind="span"); reading them back waits for the state API, which is
-    not ported yet.
+    (kind="span"); ``get_spans()`` pages them back through the state API.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import contextvars
 import os
 import time
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _current: "contextvars.ContextVar" = contextvars.ContextVar(
     "rt_trace_ctx", default=None)   # (trace_id, span_id) | None
@@ -99,3 +98,12 @@ def _record(event: Dict[str, Any]) -> None:
         get_core().record_task_event(event)
     except Exception:
         pass  # not connected: tracing is best-effort
+
+
+def get_spans(limit: int = 5000,
+              trace_id: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Finished spans from the GCS (newest first); optionally one trace.
+    The trace filter is pushed down server-side — the page limit applies
+    AFTER filtering, so a busy retention window can't truncate a trace."""
+    from ray_tpu_torch.util.state import list_tasks
+    return list_tasks(limit=limit, kind="span", trace_id=trace_id)

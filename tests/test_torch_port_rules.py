@@ -39,7 +39,19 @@ def _port_files():
             "test_torch_core_basic", "test_torch_actors",
             "test_torch_placement_group", "test_torch_wire",
             "test_torch_shm_hygiene", "test_torch_serialization",
-            "test_torch_gpu_resources", "test_torch_runtime_gpu")]
+            "test_torch_gpu_resources", "test_torch_runtime_gpu",
+            "test_torch_cancel", "test_torch_config", "test_torch_forkserver",
+            "test_torch_cluster", "test_torch_locality_scheduling",
+            "test_torch_object_store_recovery",
+            "test_torch_partition_tolerance", "test_torch_pubsub_gcs_ft",
+            "test_torch_push_transfer", "test_torch_reconstruction",
+            "test_torch_refcount_fuzz", "test_torch_scheduling",
+            "test_torch_spilling", "test_torch_wait_semantics",
+            "test_torch_worker_logs", "test_torch_data_integrity",
+            "test_torch_observability", "test_torch_fault_injection",
+            "test_torch_tracing_usage", "test_torch_chaos",
+            "test_torch_partition_chaos", "test_torch_data_chaos",
+            "test_torch_native_sanitizers")]
     assert len(files) > 10
     return files
 
@@ -220,8 +232,8 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
 
 
 def test_options_of_unported_modules_raise():
-    """runtime_env, the DAG (.bind) and timeline wait for their modules
-    (ROADMAP A8) and say so instead of doing something else."""
+    """runtime_env and the DAG (.bind) wait for their modules (ROADMAP A2)
+    and say so instead of doing something else."""
     import ray_tpu_torch
     from ray_tpu_torch.remote_function import _build_scheduling
 
@@ -229,5 +241,3 @@ def test_options_of_unported_modules_raise():
         _build_scheduling({"runtime_env": {"env_vars": {"A": "1"}}})
     with pytest.raises(NotImplementedError, match="DAG"):
         ray_tpu_torch.remote(lambda: 1).bind()
-    with pytest.raises(NotImplementedError, match="timeline"):
-        ray_tpu_torch.timeline()

@@ -1,11 +1,14 @@
-"""The port's runtime on the card: steps 3-7 of chip_smoke.py's runtime
-phase at a small depth (GPT-2 at 2 layers, width 768, [2, 1024] tokens).
+"""The port's runtime on the card: chip_smoke.py's runtime phase at a
+small depth (GPT-2 at 2 layers, width 768, [2, 1024] tokens).
 
 A ``num_gpus=1`` actor takes the params through the object store, runs
 the bf16 forward on the flash kernel and hands its CUDA logits back; they
 equal the in-process forward's (bit for bit, else within its bf16 error);
-a second one-card actor waits for the first; a task without a card gets
-the logits as an equal CPU tensor.  The test needs a CUDA card and skips
+the observers see it (the actors channel, list_actors, list_tasks, the
+timeline, spans, autotune_totals); a second one-card actor waits for the
+first; a task without a card gets the logits as an equal CPU tensor.  Then
+a one-card actor survives its node's death on a cluster_utils.Cluster
+(the runtime_node_death step).  The tests need a CUDA card and skip
 without one.  It imports nothing of JAX, so on the card it runs without
 the repo's conftest:
 
@@ -26,14 +29,28 @@ from ray_tpu_torch.models import (GPTConfig, gpt_init, params_from_jax,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture
-def card_cluster():
+def _chip_smoke():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; on the card run `python -m pytest "
                     "--noconftest -m gpu tests/test_torch_runtime_gpu.py`")
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)       # chip_smoke.py; workers inherit it
     import chip_smoke
+    return chip_smoke
+
+
+def _two_layers():
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), num_layers=2,
+                              dtype=torch.bfloat16, attention="flash")
+    tree = params_to_numpy(gpt_init(0, cfg, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen)
+    return cfg, tree, tokens
+
+
+@pytest.fixture
+def card_cluster():
+    chip_smoke = _chip_smoke()
     if chip_smoke.shm_free_bytes() < chip_smoke.RUNTIME_STORE_BYTES:
         pytest.fail(f"/dev/shm holds less than the "
                     f"{chip_smoke.RUNTIME_STORE_BYTES}-byte store")
@@ -47,17 +64,26 @@ def card_cluster():
 def test_gpt_forward_in_a_gpu_actor_through_the_store(card_cluster):
     chip_smoke, _ = card_cluster
     assert ray_tpu_torch.cluster_resources()["GPU"] >= 1.0
-    cfg = dataclasses.replace(GPTConfig.gpt2_small(), num_layers=2,
-                              dtype=torch.bfloat16, attention="flash")
-    tree = params_to_numpy(gpt_init(0, cfg, device="cpu"))
-    gen = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen)
+    cfg, tree, tokens = _two_layers()
     out = chip_smoke.runtime_steps(torch.device("cuda", 0), cfg, tree,
                                    tokens)
     assert out["actor_launches"] == (2 * out["actor_forwards"], 0, 0, 0, 0,
                                      0)
     assert out["bit_identical"] or (out["max_abs_diff_vs_in_process"] <=
                                     out["limit"])
+    assert out["observe"]["actors_channel"][:1] == ["alive"]
+    assert out["observe"]["list_tasks_forward"] == 3
+
+
+@pytest.mark.gpu
+def test_gpu_actor_survives_its_nodes_death():
+    chip_smoke = _chip_smoke()
+    cfg, tree, tokens = _two_layers()
+    out = chip_smoke.runtime_node_death(torch.device("cuda", 0), cfg, tree,
+                                        tokens)
+    assert out["bit_identical_after_restart"]
+    assert out["actor_launches"] == (4, 0, 0, 0, 0, 0)
+    assert not set(out["card_apps_after_kill"]) & set(out["dead_pids"])
 
 
 @pytest.mark.gpu
