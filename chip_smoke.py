@@ -132,7 +132,8 @@ Every phase prints one JSON line and any failure exits nonzero:
            timed training steps for the flash kernels, the autotune path
            for the splash kernels; the flash entries also each family's
            inference and training launches, MoE GPT's training and the
-           pipeline's two schedules among them), its error and its bf16
+           pipeline's two schedules and the serve replica's batched
+           forward among them), its error and its bf16
            design ("wgmma+tma" or "mma.sync"); all but the flash forward's
            entry also their achieved TFLOP/s and the share of their bound they
            reach (the flash forward's under "train_call" and at the
@@ -182,6 +183,33 @@ Every phase prints one JSON line and any failure exits nonzero:
            joins and the actor restarts there with logits bit-identical to
            its logits before the kill; seconds to detect, to free the card
            and to restart (torch import, CUDA init and params split out)
+  runtime_serve  serve on the same cluster, after the GPU actors are
+           gone: (a) an LLMServer replica with num_gpus=1 (GPT-2-small,
+           bf16, the serve phase's engine settings; its params pulled from
+           the store in __init__, its cold start split into process start
+           to __init__ (interpreter, worker connect, the unpickle that
+           imports torch), params and engine build) streams the serve
+           phase's 12 prompts over HTTP (SSE, all at once) through
+           serve.start_http(); every stream's 64 tokens equal an
+           in-process engine's on the same params and prompts (a
+           divergence is accepted only where the two tokens' bf16 logits
+           lie within the in-process bf16 error, and is printed); tokens/s
+           and p50 time to first token beside the in-process engine's
+           and the serve phase's; one request alone on the replica's own
+           engine, through the handle and over HTTP (the differences are
+           the per-request overheads); /api/serve
+           shows the deployment running, every node's stats carry the
+           serve counters, and serve_totals() (failures only: it has no
+           request counter) and the ingress count no retry, ejection,
+           resume, drain or shed; after
+           serve.delete the replica's process leaves nvidia-smi's compute
+           apps; (b) a num_gpus=1 replica whose @serve.batch(4) method
+           runs the bf16 flash forward on rows of 1024 tokens answers 8
+           concurrent handle calls with last-position logits as CPU
+           tensors, each within the runtime phase's limit of the
+           in-process forward of its row; its own launch counts (12
+           flash forward launches a batch, nothing else) are the kernels
+           line's launches_serve
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -689,15 +717,23 @@ def _prompts(n, lo, hi, vocab):
     return [rng.integers(0, vocab, int(L)).tolist() for L in lens]
 
 
+def engine_kwargs(page, max_prompt, max_new, max_batch) -> dict:
+    """EngineConfig's sizes for ``max_batch`` sequences of up to
+    ``max_prompt`` + ``max_new`` tokens at once (page 0 is scratch)."""
+    need = -(-(max_prompt + max_new) // page)
+    return dict(page_size=page, num_pages=1 + max_batch * need,
+                max_batch=max_batch, max_prompt_len=max_prompt,
+                max_new_tokens=max_new)
+
+
 def _serve_once(dev, cfg, params, prompts, page, max_prompt, max_new,
                 max_batch):
+    """The engine on ``prompts`` at once: per request (tokens, seconds to
+    the first token, seconds to the last), the wall seconds, the stats."""
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
-    need = -(-(max_prompt + max_new) // page)
     eng_cfg = EngineConfig(model=family(cfg).model, model_config=cfg,
-                           page_size=page,
-                           num_pages=1 + max_batch * need,
-                           max_batch=max_batch, max_prompt_len=max_prompt,
-                           max_new_tokens=max_new, device=dev)
+                           device=dev, **engine_kwargs(
+                               page, max_prompt, max_new, max_batch))
 
     async def run():
         eng = InferenceEngine(eng_cfg, params=params)
@@ -708,7 +744,7 @@ def _serve_once(dev, cfg, params, prompts, page, max_prompt, max_new,
                 if first is None:
                     first = time.perf_counter() - t0
                 toks.append(t)
-            return toks, first
+            return toks, first, time.perf_counter() - t0
 
         try:
             t0 = time.perf_counter()
@@ -723,7 +759,7 @@ def _serve_once(dev, cfg, params, prompts, page, max_prompt, max_new,
           f"engine left work behind: {stats}")
     check(stats["free_pages"] == eng_cfg.num_pages - 1,
           f"engine did not return every page: {stats}")
-    check(all(len(t) == max_new for t, _ in res),
+    check(all(len(t) == max_new for t, _, _ in res),
           "a request was not answered in full")
     return res, wall, stats
 
@@ -740,7 +776,7 @@ def phase_serve(dev, cfg, params, n_req, prompt_lo, max_prompt, max_new,
     res, wall32, _ = _serve_once(dev, c32, params, prompts, page, max_prompt,
                                  max_new, max_batch)
     ties = 0
-    for p, (toks, _) in list(zip(prompts, res))[:n_checked]:
+    for p, (toks, _, _) in list(zip(prompts, res))[:n_checked]:
         # Teacher-forced along the engine's tokens: one causal forward
         # gives the dense model's prediction at every step.
         seq = torch.tensor([p + toks[:n_greedy - 1]], device=dev)
@@ -761,16 +797,18 @@ def phase_serve(dev, cfg, params, n_req, prompt_lo, max_prompt, max_new,
     if dev.type == "cuda":
         profile_decode_step(dev, cbf, params, prompts, page, max_prompt,
                             max_new, max_batch)
-    gen_tokens = sum(len(t) for t, _ in res)
-    emit(fam.prefix + "serve", requests=n_req, slots=max_batch,
-         page_size=page,
-         prompt_lens=[len(p) for p in prompts], max_new_tokens=max_new,
-         f32_greedy_checked=n_checked, f32_greedy_steps=n_greedy,
-         f32_accepted_near_ties=ties, f32_tokens_per_s=n_req * max_new /
-         wall32, bf16_generated_tokens=gen_tokens,
-         bf16_tokens_per_s=gen_tokens / wall,
-         bf16_p50_ttft_ms=statistics.median(f for _, f in res) * 1e3,
-         bf16_decode_steps=stats["steps"], free_pages=stats["free_pages"])
+    gen_tokens = sum(len(t) for t, _, _ in res)
+    fields = dict(
+        requests=n_req, slots=max_batch, page_size=page,
+        prompt_lens=[len(p) for p in prompts], max_new_tokens=max_new,
+        f32_greedy_checked=n_checked, f32_greedy_steps=n_greedy,
+        f32_accepted_near_ties=ties, f32_tokens_per_s=n_req * max_new /
+        wall32, bf16_generated_tokens=gen_tokens,
+        bf16_tokens_per_s=gen_tokens / wall,
+        bf16_p50_ttft_ms=statistics.median(f for _, f, _ in res) * 1e3,
+        bf16_decode_steps=stats["steps"], free_pages=stats["free_pages"])
+    emit(fam.prefix + "serve", **fields)
+    return fields
 
 
 def profile_decode_step(dev, cfg, params, prompts, page, max_prompt,
@@ -2121,7 +2159,400 @@ def shm_free_bytes() -> int:
     return st.f_bavail * st.f_frsize
 
 
-def phase_runtime(dev, cfg, limit, smi):
+# ------------------------------------------------------------- serving
+
+# runtime_serve's flash deployment: rows of 1024 tokens, batched up to 4.
+SERVE_FLASH_ROWS = 8
+SERVE_FLASH_BATCH = 4
+
+
+def _serve_classes():
+    """The two deployments of runtime_serve, made where serve is imported
+    (the classes travel to their replicas by value with cloudpickle).
+
+    ``ServeLLM`` is ``LLMServer`` with its params pulled from the object
+    store in ``__init__``: the deployment's args go to the controller and
+    into its KV checkpoint, so they carry an ObjectRef in a list, never
+    the 0.5 GB tree.  ``FlashServe`` runs GPT-2's bf16 flash forward on
+    rows of tokens batched by ``@serve.batch`` and returns each row's
+    last-position logits as a CPU tensor."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.engine import LLMServer
+
+    def pull_params(box, fields, device):
+        """(cfg, params on the card, seconds) from a boxed tree ref."""
+        import torch
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.models import GPTConfig, params_from_jax
+        t0 = time.perf_counter()
+        cfg = GPTConfig(**{**fields,
+                           "dtype": getattr(torch, fields["dtype"])})
+        params = params_from_jax(rt.get(box[0], timeout=600), cfg,
+                                 device=device)
+        if params["wte"].device.type == "cuda":
+            torch.cuda.synchronize()
+        return cfg, params, time.perf_counter() - t0
+
+    def started_at() -> float:
+        """This process's start, on the time.time() clock."""
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+
+    class ServeLLM(LLMServer):
+        def __init__(self, box, fields, sizes, device=None):
+            import torch
+
+            from ray_tpu_torch.serve.engine import EngineConfig
+            # Unpickling this class and its args imported torch, before
+            # __init__: the seconds from process start to here hold the
+            # interpreter's start, the worker's connect and that import.
+            t_init = time.time()
+            to_init_s = t_init - started_at()
+            cfg, params, params_s = pull_params(box, fields, device)
+            t0 = time.perf_counter()
+            super().__init__(EngineConfig(model_config=cfg, device=device,
+                                          **sizes), params=params)
+            if self._engine.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.start = {
+                "to_init_s": to_init_s, "params_s": params_s,
+                "engine_s": time.perf_counter() - t0,
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "engine_device": str(self._engine.device),
+                "pid": os.getpid()}
+
+        def start_info(self) -> dict:
+            return self.start
+
+        async def timed(self, payload):
+            """One request on the replica's own engine, in its process:
+            (tokens, seconds to the first token, seconds to the last)."""
+            t0, first, toks = time.perf_counter(), None, []
+            async for tok in self._engine.generate(
+                    payload["tokens"], payload.get("max_new_tokens")):
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(tok)
+            return toks, first, time.perf_counter() - t0
+
+    class FlashServe:
+        def __init__(self, box, fields, device=None):
+            cfg, params, params_s = pull_params(box, fields, device)
+            self.cfg, self.params = cfg, params
+            self.batch_sizes = []
+            self.start = {"params_s": params_s, "pid": os.getpid(),
+                          "cuda_visible_devices": os.environ.get(
+                              "CUDA_VISIBLE_DEVICES")}
+
+        @serve.batch(max_batch_size=SERVE_FLASH_BATCH,
+                     batch_wait_timeout_s=0.05)
+        async def forward(self, rows):
+            import torch
+
+            from ray_tpu_torch.models import gpt_forward
+            self.batch_sizes.append(len(rows))
+            tokens = torch.tensor(rows, device=self.params["wte"].device)
+            with torch.no_grad():
+                logits = gpt_forward(self.params, tokens, self.cfg)
+            return list(logits[:, -1].float().cpu().unbind(0))
+
+        async def __call__(self, row):
+            return await self.forward(row)
+
+        def start_info(self) -> dict:
+            return self.start
+
+        def reset(self):
+            reset_launch_counts()
+            self.batch_sizes = []
+
+        def launches(self) -> dict:
+            return {"launches": launch_counts(),
+                    "batch_sizes": list(self.batch_sizes)}
+
+    return ServeLLM, FlashServe
+
+
+def sse_request(url, route, payload, timeout=600):
+    """One SSE session over a raw socket: (tokens, seconds to the first
+    token, seconds to the end)."""
+    import socket
+    host, port = url.split("//")[1].split(":")
+    body = json.dumps({**payload, "stream": True}).encode()
+    t0 = time.perf_counter()
+    first = None
+    with socket.create_connection((host, int(port)), timeout=timeout) as s:
+        s.sendall(f"POST {route} HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        buf = b""
+        while b"event: end" not in buf or not buf.endswith(b"0\r\n\r\n"):
+            c = s.recv(65536)
+            check(c, f"SSE stream closed early: {buf[-300:]!r}")
+            buf += c
+            if first is None and b"data: " in buf:
+                first = time.perf_counter() - t0
+            check(b"event: error" not in buf,
+                  f"SSE error event: {buf[-300:]!r}")
+    total = time.perf_counter() - t0
+    events = [line for line in buf.replace(b"\r\n", b"\n").split(b"\n")
+              if line.startswith(b"data: ")]
+    return [json.loads(e[6:]) for e in events][:-1], first, total
+
+
+def http_json(url, timeout=30):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def first_divergence(a, b) -> int:
+    """Index of the first token where two streams differ (len if none)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def runtime_serve(dev, cfg, tree, dashboard, limit, serve_cfg=None,
+                  serve_phase=None):
+    """Serve on the runtime phase's cluster (see the module docstring):
+    (a) an LLMServer replica with num_gpus=1 streams over HTTP, held to an
+    in-process engine on the same params and prompts; (b) a num_gpus=1
+    replica runs the bf16 flash forward under @serve.batch, held to the
+    in-process forward.  ``serve_phase`` (the serve phase's numbers) is
+    printed beside the step's.  Returns the step's numbers; the flash
+    replica's launch counts under ``flash_launches``."""
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt_forward, params_from_jax
+    from ray_tpu_torch.util import state
+
+    serve_cfg = serve_cfg or SERVE
+    ServeLLM, FlashServe = _serve_classes()
+    on_card = dev.type == "cuda"
+    remote_dev = None if on_card else "cpu"   # the replica's own card
+    sizes = (serve_cfg["page"], serve_cfg["max_prompt"],
+             serve_cfg["max_new"], serve_cfg["max_batch"])
+    max_prompt, max_new = sizes[1], sizes[2]
+    # The engine prefills dense (gpt_prefill) and decodes paged, in bf16.
+    ecfg = dataclasses.replace(cfg, dtype=torch.bfloat16, attention="dense")
+    prompts = _prompts(serve_cfg["n_req"], serve_cfg["prompt_lo"],
+                       max_prompt, cfg.vocab_size)
+    params = params_from_jax(tree, cfg, device=dev)
+    out = {}
+    if serve_phase is not None:
+        out["serve_phase"] = {
+            "tokens_per_s": serve_phase["bf16_tokens_per_s"],
+            "p50_ttft_ms": serve_phase["bf16_p50_ttft_ms"]}
+
+    # The yardstick: the in-process engine, on the same tree and prompts,
+    # before the replica shares the card (a warm-up request first).
+    _serve_once(dev, ecfg, params, prompts[1:2], *sizes)
+    ref, wall, _ = _serve_once(dev, ecfg, params, prompts, *sizes)
+    out["in_process"] = {
+        "tokens_per_s": sum(len(t) for t, _, _ in ref) / wall,
+        "p50_ttft_ms": statistics.median(f for _, f, _ in ref) * 1e3}
+
+    tree_ref = rt.put(tree)
+    fields = gpt_fields(ecfg)
+    try:
+        # (a) LLMServer over HTTP from a num_gpus=1 replica.
+        dep = serve.deployment(
+            name="llm", max_concurrent_queries=2 * serve_cfg["n_req"],
+            ray_actor_options={"num_cpus": 1, "num_gpus": 1})(ServeLLM)
+        t0 = time.perf_counter()
+        handle = serve.run(dep.bind([tree_ref], fields,
+                                    engine_kwargs(*sizes), remote_dev))
+        start = rt.get(handle.method("start_info").remote(), timeout=900)
+        out["llm_cold_start_s"] = time.perf_counter() - t0
+        out["llm_replica"] = start
+        if on_card:
+            check(start["cuda_visible_devices"] == os.environ.get(
+                "CUDA_VISIBLE_DEVICES", "0"),
+                f"the replica sees {start['cuda_visible_devices']!r}")
+            check(start["engine_device"] == "cuda:0",
+                  f"the replica's engine is on {start['engine_device']}")
+        url = serve.start_http()
+        deadline = time.monotonic() + 60
+        while "/llm" not in http_json(f"{url}/-/routes"):
+            check(time.monotonic() < deadline, "the ingress never saw /llm")
+            time.sleep(0.2)
+        # One warm request, then the 12 concurrent streams.
+        sse_request(url, "/llm", {"tokens": prompts[1],
+                                  "max_new_tokens": max_new})
+        results = [None] * len(prompts)
+
+        def stream(i):
+            try:
+                results[i] = sse_request(url, "/llm", {
+                    "tokens": prompts[i], "max_new_tokens": max_new})
+            except BaseException as e:   # noqa: BLE001 - checked below
+                results[i] = e
+
+        threads = [threading.Thread(target=stream, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        http_wall = time.perf_counter() - t0
+        for i, r in enumerate(results):
+            check(not isinstance(r, BaseException) and r is not None,
+                  f"HTTP stream {i} failed: {r!r}")
+        check(all(len(t) == max_new for t, _, _ in results),
+              f"an HTTP stream was short: {[len(t) for t, _, _ in results]}")
+        diverged = {i: first_divergence(t, want)
+                    for i, ((t, _, _), (want, _, _))
+                    in enumerate(zip(results, ref)) if t != want}
+        near_ties = []
+        for i, d in diverged.items():
+            # A reduction-order difference may flip a near-tie: the two
+            # tokens' bf16 logits at the divergence lie within the
+            # in-process bf16 logit error (phase_serve's rule).
+            seq = torch.tensor([prompts[i] + ref[i][0][:d]], device=dev)
+            with torch.no_grad():
+                lg = gpt_forward(params, seq, ecfg)[0, -1].float()
+            got, want = results[i][0][d], ref[i][0][d]
+            gap = float(lg.max() - min(lg[got], lg[want]))
+            near_ties.append({"stream": i, "step": d, "gap": gap})
+            check(gap <= limit, f"HTTP stream {i} diverges at token {d} "
+                  f"({got} != {want}) with a logit gap {gap} > {limit}")
+        out["http"] = {
+            "streams": len(results), "tokens_each": max_new,
+            "identical_streams": len(results) - len(diverged),
+            "near_ties": near_ties,
+            "tokens_per_s": sum(len(t) for t, _, _ in results) / http_wall,
+            "p50_ttft_ms": statistics.median(f for _, f, _ in results) * 1e3}
+        # One request alone: on the replica's engine in its own process,
+        # through the handle and over HTTP; the differences are the
+        # handle's and HTTP's per-request overhead.
+        payload = {"tokens": prompts[1], "max_new_tokens": max_new}
+        own, handle_ms, http_ms, http_ttft = [], [], [], []
+        for _ in range(3):
+            toks, first, total = rt.get(
+                handle.method("timed").remote(payload), timeout=600)
+            own.append((first * 1e3, total * 1e3))
+            check(toks == ref[1][0], "the replica's own tokens differ")
+            t0 = time.perf_counter()
+            toks = rt.get(handle.remote(payload), timeout=600)
+            handle_ms.append((time.perf_counter() - t0) * 1e3)
+            check(toks == ref[1][0], "the handle's tokens differ")
+            toks, first, total = sse_request(url, "/llm", payload)
+            check(toks == ref[1][0], "the HTTP stream's tokens differ")
+            http_ms.append(total * 1e3)
+            http_ttft.append(first * 1e3)
+        own_ms = statistics.median(s for _, s in own)
+        out["single_request"] = {
+            "replica_ttft_ms": statistics.median(f for f, _ in own),
+            "replica_total_ms": own_ms,
+            "handle_total_ms": statistics.median(handle_ms),
+            "http_ttft_ms": statistics.median(http_ttft),
+            "http_total_ms": statistics.median(http_ms),
+            "handle_overhead_ms": statistics.median(handle_ms) - own_ms,
+            "http_overhead_ms": statistics.median(http_ms) - own_ms}
+        # The dashboard and the counters agree with the traffic: the
+        # deployment running, no retry, ejection, resume or drain.
+        deadline = time.monotonic() + 30
+        while True:
+            deps = http_json(f"http://{dashboard}/api/serve")["deployments"]
+            if deps.get("llm", {}).get("running") == 1:
+                break
+            check(time.monotonic() < deadline, f"/api/serve shows {deps}")
+            time.sleep(0.5)
+        out["api_serve"] = deps
+        # serve_totals() counts failures only (no request counter) and
+        # reads 0 for a key no node reports, so first check that every
+        # raylet's stats carry the serve fold's counters.
+        from ray_tpu_torch.serve.metrics import COUNTER_NAMES
+        nodes = state.node_stats()
+        check(nodes and all(set(COUNTER_NAMES) <= set(s) for s in
+                            nodes.values()),
+              f"node stats lack the serve counters {COUNTER_NAMES}: "
+              f"{[sorted(s) for s in nodes.values()]}")
+        totals = state.serve_totals()
+        out["serve_totals"] = totals
+        check(not any(totals.values()),
+              f"serve_totals() counted failures on clean traffic: {totals}")
+        ingress = rt.get(rt.get_actor("_serve_http").stats.remote(),
+                         timeout=60)
+        check(ingress["shed"] == 0, f"the ingress shed requests: {ingress}")
+        out["ingress"] = ingress
+        apps_before = smi_query("--query-compute-apps=pid,used_memory") \
+            if on_card else []
+        serve.delete("llm")
+        if on_card:
+            # The replica's process exits and its entry leaves nvidia-smi's
+            # compute apps (which may list every process as pid 1 in a
+            # container, so the entries are counted).
+            deadline = time.monotonic() + 60
+            while True:
+                apps = smi_query("--query-compute-apps=pid,used_memory")
+                if process_gone(start["pid"]) and \
+                        len(apps) < len(apps_before):
+                    break
+                check(time.monotonic() < deadline, "the deleted replica "
+                      f"{start['pid']} still holds the card: {apps} "
+                      f"(before the delete {apps_before})")
+                time.sleep(0.2)
+            out["card_apps_before_delete"] = apps_before
+            out["card_apps_after_delete"] = apps
+
+        # (b) The flash forward through serve, batched.
+        dep = serve.deployment(
+            name="flash", max_concurrent_queries=2 * SERVE_FLASH_ROWS,
+            ray_actor_options={"num_cpus": 1, "num_gpus": 1})(FlashServe)
+        t0 = time.perf_counter()
+        fh = serve.run(dep.bind([tree_ref], gpt_fields(cfg), remote_dev))
+        out["flash_replica"] = rt.get(fh.method("start_info").remote(),
+                                      timeout=900)
+        out["flash_cold_start_s"] = time.perf_counter() - t0
+        gen = torch.Generator().manual_seed(SEED + 1)
+        rows = torch.randint(0, cfg.vocab_size,
+                             (SERVE_FLASH_ROWS, RUNTIME_TOKENS[1]),
+                             generator=gen).tolist()
+        rt.get(fh.method("reset").remote(), timeout=60)
+        t0 = time.perf_counter()
+        got = rt.get([fh.remote(r) for r in rows], timeout=600)
+        out["flash_calls_s"] = time.perf_counter() - t0
+        counted = rt.get(fh.method("launches").remote(), timeout=60)
+        out["flash_launches"] = counted["launches"]
+        out["flash_batch_sizes"] = counted["batch_sizes"]
+        check(sum(counted["batch_sizes"]) == SERVE_FLASH_ROWS and
+              max(counted["batch_sizes"]) > 1,
+              f"the flash replica's batches {counted['batch_sizes']}")
+        if on_card:
+            check(counted["launches"] == (
+                cfg.num_layers * len(counted["batch_sizes"]), 0, 0, 0, 0,
+                0), f"the flash replica launched {counted['launches']}")
+        errs = []
+        with torch.no_grad():
+            for r, logits in zip(rows, got):
+                check(isinstance(logits, torch.Tensor) and
+                      logits.device.type == "cpu" and
+                      tuple(logits.shape) == (cfg.vocab_size,),
+                      f"flash replica returned {type(logits)}")
+                want = gpt_forward(params, torch.tensor([r], device=dev),
+                                   cfg)[0, -1].float().cpu()
+                errs.append(float((logits - want).abs().max()))
+        out["flash_max_abs_diff_vs_in_process"] = max(errs)
+        out["flash_limit"] = limit
+        check(max(errs) <= limit, f"the serve-batched flash forward "
+              f"differs from the in-process one by {max(errs)} > {limit}")
+        serve.delete("flash")
+    finally:
+        serve.shutdown()
+    return out
+
+
+def phase_runtime(dev, cfg, limit, smi, serve_phase=None):
     """The runtime core on the card (see the module docstring)."""
     import torch
 
@@ -2149,6 +2580,10 @@ def phase_runtime(dev, cfg, limit, smi):
         check(len(types) == 1 and "H100" in types[0],
               f"the node's accelerator_type is {types}")
         out = runtime_steps(dev, cfg, tree, tokens, limit=limit)
+        t0 = time.perf_counter()
+        serve_out = runtime_serve(dev, cfg, tree, info["dashboard_address"],
+                                  out["limit"], serve_phase=serve_phase)
+        serve_out["step_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = [e for e in os.listdir("/dev/shm")
@@ -2159,12 +2594,14 @@ def phase_runtime(dev, cfg, limit, smi):
          store_bytes=RUNTIME_STORE_BYTES, shm_free_bytes=free,
          tokens=list(RUNTIME_TOKENS), **out)
     emit("runtime_observe", card=smi, **observe)
+    emit("runtime_serve", card=smi, **serve_out)
     t0 = time.perf_counter()
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,
          step_s=time.perf_counter() - t0, **death)
     out["actor_launches"] = tuple(a + b for a, b in zip(
         out["actor_launches"], death["actor_launches"]))
+    out["serve_launches"] = serve_out["flash_launches"]
     return out
 
 
@@ -2546,7 +2983,8 @@ def top1_figures(dev, fam, params, cfg, windows, train):
     dense forward's cross-entropy beside the unigram and bigram baselines
     fitted on ``train``, bf16 top-1 agreement of flash with dense and of
     each with f32, the bf16 logit error and the share of positions whose
-    f32 top-2 gap is under it, and whether the corpus closes ROADMAP C1
+    f32 top-2 gap is under it (all of them again over the 256 byte logits
+    only, under ``byte_logits``), and whether the corpus closes ROADMAP C1
     (loss TOP1_BELOW_BIGRAM under the better baseline, and flash with
     dense on 99% of the positions)."""
     import torch
@@ -2571,6 +3009,24 @@ def top1_figures(dev, fam, params, cfg, windows, train):
                                             .mean())
              for a, b in (("flash", "dense"), ("flash", "f32"),
                           ("dense", "f32"))}
+    # The same over the 256 byte logits only: byte training never touches
+    # the other rows of the head, so their error says nothing of the path.
+    byte = {k: v[..., :256] for k, v in logits.items()}
+    byte_err = max(float((byte[k] - byte["f32"]).abs().max())
+                   for k in ("flash", "dense"))
+    byte_top2 = byte["f32"].topk(2, dim=-1).values
+    byte_gap = byte_top2[..., 0] - byte_top2[..., 1]
+    byte_top = {k: v.argmax(-1) for k, v in byte.items()}
+    bytes_only = dict(
+        bf16_max_logit_err=byte_err,
+        share_top2_gap_under_bf16_err=float((byte_gap < byte_err).float()
+                                            .mean()),
+        f32_top2_gap_p05=float(torch.quantile(byte_gap.flatten().float(),
+                                              0.05)),
+        **{f"bf16_top1_{a}_vs_{b}": float((byte_top[a] == byte_top[b])
+                                          .float().mean())
+           for a, b in (("flash", "dense"), ("flash", "f32"),
+                        ("dense", "f32"))})
     # The better of the two context-free baselines: on the copy corpus the
     # bigram table (65,536 cells from ~2.5M bytes of independent span
     # bytes) fits noise and falls behind the unigram, which a model reaches
@@ -2584,6 +3040,7 @@ def top1_figures(dev, fam, params, cfg, windows, train):
         bf16_max_logit_err=err,
         share_top2_gap_under_bf16_err=float((gap < err).float().mean()),
         f32_top2_gap_p05=float(torch.quantile(gap.flatten().float(), 0.05)),
+        byte_logits=bytes_only,
         c1_holds=trained and agree["bf16_top1_flash_vs_dense"] >= 0.99)
 
 
@@ -2701,7 +3158,7 @@ def model_paths(dev, cfg, train_cfg, B=4, S=1024, train_B=32, serve=SERVE):
     params = family(cfg).init(SEED, cfg, device=dev)
     reset_launch_counts()                     # the inference path starts
     fwd = phase_forward(dev, cfg, params, B=B, S=S)
-    phase_serve(dev, cfg, params, **serve)
+    fwd["serve"] = phase_serve(dev, cfg, params, **serve)
     infer = launch_counts()                   # ... and ends here
     del params
     empty_cache(dev)
@@ -2799,7 +3256,7 @@ def run() -> int:
     torch.cuda.empty_cache()
     runtime = phase_runtime(dev, dataclasses.replace(
         cfg, dtype=torch.bfloat16, attention="flash"),
-        fwd["bf16_flash_max_abs_diff_vs_f32"], smi)
+        fwd["bf16_flash_max_abs_diff_vs_f32"], smi, fwd["serve"])
     emit("total", seconds=time.monotonic() - _T0)
     pipe_launches = [pipe["gpipe"]["launches"][i] +
                      pipe["1f1b"]["launches"][i] for i in range(3)]
@@ -2820,9 +3277,10 @@ def run() -> int:
          "launches": infer_launches[0] + train["launches"][0] +
          llama_infer[0] + llama_train["launches"][0] +
          moe_train["launches"][0] + pipe_launches[0] +
-         runtime["actor_launches"][0],
+         runtime["actor_launches"][0] + runtime["serve_launches"][0],
          "launches_inference": infer_launches[0],
          "launches_runtime": runtime["actor_launches"][0],
+         "launches_serve": runtime["serve_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],

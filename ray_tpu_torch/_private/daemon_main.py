@@ -5,7 +5,6 @@ Design analog: reference ``python/ray/_private/node.py`` +
 The reference spawns gcs_server and raylet as separate processes; we co-host
 the GCS inside the head node's daemon process (they still talk over a real
 socket, preserving the rpc boundary) to keep process count sane on one host.
-The head starts without a dashboard: the port has none yet.
 
 Invoked as:  python -m ray_tpu_torch._private.daemon_main --ready-file F [--head]
              [--gcs-address HOST:PORT] [--resources JSON] ...
@@ -60,10 +59,24 @@ async def amain(args, resources: Dict[str, float],
                 gpu_ids: List[str]) -> None:
     node_id = NodeID.from_random()
     gcs = None
+    dashboard = None
+    dashboard_address = None
     if args.head:
         gcs = GcsServer(persist_path=args.gcs_persist_path)
         gcs_port = await gcs.start(args.gcs_port)
         gcs_address = f"127.0.0.1:{gcs_port}"
+        if args.dashboard_port >= 0:
+            # Best-effort: a taken port (another cluster's dashboard on
+            # 8265) must not abort head startup over observability.
+            try:
+                from ray_tpu_torch.dashboard import DashboardHttpServer
+                dashboard = DashboardHttpServer(gcs)
+                dport = await dashboard.start(args.dashboard_port)
+                dashboard_address = f"127.0.0.1:{dport}"
+            except OSError as e:
+                logger.warning("dashboard disabled: port %s unavailable "
+                               "(%s)", args.dashboard_port, e)
+                dashboard = None
     else:
         gcs_address = args.gcs_address
 
@@ -86,6 +99,7 @@ async def amain(args, resources: Dict[str, float],
         "raylet_address": f"127.0.0.1:{raylet_port}",
         "store_name": raylet.store_name,
         "pid": os.getpid(),
+        "dashboard_address": dashboard_address,
     }
     def _write_ready():
         tmp = args.ready_file + ".tmp"
@@ -121,6 +135,8 @@ async def amain(args, resources: Dict[str, float],
         spawn(watch_parent(), name="daemon-parent-watch")
     await stop.wait()
     await raylet.close()
+    if dashboard is not None:
+        await dashboard.close()
     if gcs is not None:
         await gcs.close()
 
@@ -135,6 +151,9 @@ def main():
     parser.add_argument("--ready-file", required=True)
     parser.add_argument("--worker-env", default=None)
     parser.add_argument("--no-gpu-detect", action="store_true")
+    parser.add_argument("--dashboard-port", type=int, default=0,
+                        help="Head-node HTTP dashboard port (0 = ephemeral, "
+                             "-1 = disabled)")
     parser.add_argument("--gcs-persist-path", default=None,
                         help="JSON snapshot file for GCS fault tolerance "
                              "(head only; reference: Redis-backed "

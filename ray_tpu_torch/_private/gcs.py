@@ -1015,6 +1015,14 @@ class GcsServer:
         actor = self.actors.get(ActorID.from_hex(msg["actor_id"]))
         if actor is None or actor.state == DEAD:
             return {"ok": True}
+        if msg.get("address") is not None and \
+                msg["address"] != actor.address:
+            # A raylet's report of an incarnation that is already gone
+            # from the record: ``kill(no_restart=False)`` restarted the
+            # actor when it asked for the kill, before the raylet reaped
+            # the old process.  Acting on it would restart the actor a
+            # second time and orphan the live first restart.
+            return {"ok": True}
         if msg.get("intended", False):
             actor.state = DEAD
             actor.death_cause = "killed intentionally"

@@ -58,6 +58,11 @@ def TRANSFER_CHUNK():
     return config().transfer_chunk_bytes
 
 
+# How long an actor placed here waits for the reap of a killed actor that
+# still holds the cards it needs (Raylet._take_gpus_after_reap).
+GPU_REAP_WAIT_S = 30.0
+
+
 def _unlink_segment(store_name: str) -> None:
     """atexit net for exit paths that skip close() (unhandled exceptions);
     SIGKILL is covered by the next session's sweep_orphan_segments()."""
@@ -132,6 +137,9 @@ class Raylet:
         # worker already spawned on them.
         self._gpu_ids = list(gpu_ids or [])
         self._gpu_free = list(self._gpu_ids)
+        # Set by every _give_gpus: an actor placed before the reap of the
+        # cards it was given waits on it (_take_gpus_after_reap).
+        self._gpus_given = asyncio.Event()
         self._lease_gpus: Dict[str, List[str]] = {}
         # Reap segments/spill dirs leaked by SIGKILLed predecessors before
         # creating our own (VERDICT r3 weak #3: 9.4 GB of orphans on a
@@ -516,6 +524,12 @@ class Raylet:
         # util.metrics sink instead.
         from ray_tpu_torch.autotune import metrics as _autotune_metrics
         out.update(_autotune_metrics.stats())
+        # Serve resilience counters (router retries, circuit-breaker
+        # ejections, mid-stream failovers, drain handoffs) for THIS
+        # process; the ingress/controller/handle workers reach the GCS
+        # through the util.metrics sink instead.
+        from ray_tpu_torch.serve import metrics as _serve_metrics
+        out.update(_serve_metrics.stats())
         # loop_lag_ms is merged by the caller on the loop thread —
         # LoopWatchdog.record() mutates watchdog state.
         return out
@@ -680,6 +694,7 @@ class Raylet:
                     await self.gcs_conn.request({
                         "type": "report_actor_death",
                         "actor_id": w.actor_id,
+                        "address": w.address,
                         "reason": f"worker process exited with code "
                                   f"{w.proc.returncode}",
                     })
@@ -765,9 +780,30 @@ class Raylet:
         ids, self._gpu_free = self._gpu_free[:k], self._gpu_free[k:]
         return tuple(ids)
 
+    async def _take_gpus_after_reap(self, resources: Dict[str, float]
+                                    ) -> Tuple[str, ...]:
+        """``_take_gpus`` for an actor the GCS placed here.  The GCS frees
+        a killed actor's cards in its view when it asks for the kill; this
+        raylet frees their ids when it reaps the process (``kill_actor_worker``
+        only signals it).  An actor placed in between waits for
+        ``_give_gpus``, at most GPU_REAP_WAIT_S, instead of failing its
+        creation."""
+        k = int(resources.get("GPU", 0))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + GPU_REAP_WAIT_S
+        while len(self._gpu_free) < k:
+            self._gpus_given.clear()
+            try:
+                await asyncio.wait_for(self._gpus_given.wait(),
+                                       deadline - loop.time())
+            except asyncio.TimeoutError:
+                break
+        return self._take_gpus(resources)
+
     def _give_gpus(self, ids) -> None:
         self._gpu_free = sorted(self._gpu_free + list(ids),
                                 key=self._gpu_ids.index)
+        self._gpus_given.set()
 
     async def _spawn_worker(self, actor_id: Optional[str] = None,
                             runtime_env: Optional[dict] = None,
@@ -865,7 +901,7 @@ class Raylet:
         pool = self.bundles.get((pg_id, msg.get("bundle_index", 0)),
                                 self.resources_available) \
             if pg_id else self.resources_available
-        gpu_ids = self._take_gpus(resources)
+        gpu_ids = await self._take_gpus_after_reap(resources)
         for k, v in resources.items():
             pool[k] = pool.get(k, 0.0) - v
         w = None

@@ -835,6 +835,31 @@ def main():
     from ray_tpu_torch._private import worker as worker_mod
     worker_mod.global_worker.attach_core(core, mode="worker")
 
+    # Runtime env materialization (env_vars were applied by the raylet at
+    # spawn, under the card ids it leased; packages need the GCS KV, so
+    # they land here, after a forked worker left the template):
+    # working_dir is extracted + chdir'd, py_modules and pip targets join
+    # sys.path (reference: the runtime-env agent's ``working_dir.py`` /
+    # ``py_modules.py`` / ``pip.py`` plugins).
+    renv_json = os.environ.get("RT_RUNTIME_ENV")
+    if renv_json:
+        import json as _json
+        import tempfile as _tempfile
+        from ray_tpu_torch.runtime_env.runtime_env import PKG_NS, materialize
+        renv = _json.loads(renv_json)
+
+        def _kv_get(key):
+            return core.gcs_request({"type": "kv_get", "ns": PKG_NS,
+                                     "key": key})
+
+        mat = materialize(renv, _kv_get, os.path.join(
+            _tempfile.gettempdir(), "rtt_runtime_env"))
+        for p in reversed(mat["paths"]):
+            if p not in sys.path:
+                sys.path.insert(0, p)
+        if mat["workdir"]:
+            os.chdir(mat["workdir"])
+
     async def register():
         conn = await connect(raylet_address,
                              lambda m: executor.handle(None, m),

@@ -59,9 +59,13 @@ def _build_scheduling(opts: Dict[str, Any]) -> Dict[str, Any]:
         out = {"node_id": strategy.node_id, "soft": strategy.soft}
     elif isinstance(strategy, str):
         out = {"strategy": strategy}
-    if opts.get("runtime_env"):
-        raise NotImplementedError(
-            "runtime_env is not ported to ray_tpu_torch yet (ROADMAP A2)")
+    renv = opts.get("runtime_env")
+    if renv:
+        from ray_tpu_torch.runtime_env import env_hash, normalize_runtime_env
+        norm = normalize_runtime_env(renv)
+        if norm:
+            out["runtime_env"] = norm
+            out["env_key"] = env_hash(norm)
     return out
 
 
@@ -82,8 +86,8 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """Lazy DAG node for this call (reference dag_node build surface:
         remote_function.py bind -> FunctionNode)."""
-        raise NotImplementedError(
-            "the DAG (.bind) is not ported to ray_tpu_torch yet (ROADMAP A2)")
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         core = get_core()

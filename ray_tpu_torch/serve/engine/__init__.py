@@ -9,6 +9,7 @@ from ray_tpu_torch.serve.engine.engine import (  # noqa: F401
     DeadlineExceeded,
     EngineConfig,
     InferenceEngine,
+    LLMServer,
 )
 from ray_tpu_torch.serve.engine.kv_cache import (  # noqa: F401
     PageAllocator,

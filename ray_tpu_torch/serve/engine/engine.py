@@ -17,8 +17,12 @@ cancellations while the card computes, and the one lane keeps the pool
 updates (made in place) ordered.
 
 The model is GPT or LLaMA (``EngineConfig.model``); both prefill dense and
-decode against the paged pools.  Not ported yet: the chaos hook of the
-reference's decode loop and ``LLMServer`` (both need the serve runtime).
+decode against the paged pools.  An expired deadline raises
+``serve.resilience.DeadlineExceeded``, a plain ``Exception`` as in the
+reference: never a ``TimeoutError``, which the ingress's stall detector
+(``asyncio.TimeoutError`` on Python 3.11+) would fail over instead of
+answering 504.  ``LLMServer`` wraps the engine as a serve deployment body;
+the decode loop carries the reference's decode-stall chaos hook.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ from ray_tpu_torch.models.gpt import (GPTConfig, gpt_decode_step, gpt_init,
 from ray_tpu_torch.models.llama import (LlamaConfig, llama_decode_step,
                                         llama_init, llama_init_paged_cache,
                                         llama_prefill)
+from ray_tpu_torch.serve import resilience
 from ray_tpu_torch.serve.engine.kv_cache import PageAllocator, table_row
+from ray_tpu_torch.serve.resilience import DeadlineExceeded
 
 logger = logging.getLogger(__name__)
 
@@ -53,10 +59,6 @@ _MODELS = {
     "llama": (LlamaConfig, llama_init, llama_prefill, llama_decode_step,
               llama_init_paged_cache),
 }
-
-
-class DeadlineExceeded(TimeoutError):
-    """A request's end-to-end deadline passed before it finished."""
 
 
 @dataclasses.dataclass
@@ -320,6 +322,14 @@ class InferenceEngine:
 
                 if not self._active:
                     continue
+                # Chaos hook: a stalled decode (wedged device, stuck
+                # launch) is indistinguishable from a dead replica to the
+                # client; the ingress's stall detector must fail the
+                # stream over.  The hook injects exactly that.
+                from ray_tpu_torch.util import fault_injection
+                stall = fault_injection.stall_replica_decode_s()
+                if stall:
+                    await asyncio.sleep(stall)
                 # One batched decode step over every live slot.  Inactive
                 # slots run token 0 at pos 0 against an all-zero table
                 # row: their writes land in scratch page 0.
@@ -346,3 +356,33 @@ class InferenceEngine:
                     seq.queue.put_nowait(e)
                 while self._waiting:
                     self._waiting.popleft().queue.put_nowait(e)
+
+
+class LLMServer:
+    """Ready-made serve deployment body around an InferenceEngine.
+
+    ``serve.deployment(LLMServer).bind(EngineConfig(...))`` gives an HTTP
+    +handle-callable token streamer: payloads are
+    ``{"tokens": [...], "max_new_tokens": N}``; the response is the
+    stream of generated token ids (a list for unary callers, per-token
+    SSE events through the streaming ingress)."""
+
+    def __init__(self, config: Optional[EngineConfig] = None,
+                 params: Any = None, **config_kwargs):
+        self._engine = InferenceEngine(config or EngineConfig(
+            **config_kwargs), params=params)
+
+    async def __call__(self, payload):
+        if not isinstance(payload, dict) or "tokens" not in payload:
+            raise ValueError(
+                'expected {"tokens": [...], "max_new_tokens": N}')
+        # The replica publishes the request's end-to-end deadline via
+        # contextvar (see serve/resilience.py); handing it to the engine
+        # lets an expired request free its KV pages mid-batch.
+        async for tok in self._engine.generate(
+                payload["tokens"], payload.get("max_new_tokens"),
+                deadline=resilience.current_deadline()):
+            yield tok
+
+    def stats(self) -> Dict[str, int]:
+        return self._engine.stats()

@@ -22,9 +22,10 @@ kills plus wall-clock sleeps.  Two halves:
   directly in a driver or as an actor via
   ``ray_tpu_torch.remote(NodeKiller)``.
 
-The serve and train hooks of the reference (slow clients, stalled
-streams and decodes, preemption notices, slow checkpoint writes, and
-``kill_replica``/``kill_train_worker``) come with serve and train.
+The serve hooks (slow clients, stalled streams and decodes,
+``kill_replica``) drive the serving fleet's chaos cases.  The train hooks
+of the reference (preemption notices, slow checkpoint writes,
+``kill_train_worker``) come with train.
 
 Everything here is import-light (stdlib only at module load) because the
 forkserver template and the protocol layer import it inside daemons.
@@ -59,6 +60,22 @@ class FaultSpec:
     # with an error reply (models a flaky holder; the puller's retry
     # rounds, not lineage, should absorb it).
     drop_fetch_reply: Optional[Any] = None
+    # Serve streaming faults (see serve/http_ingress.py and the Replica
+    # stream path):
+    # slow_client: {"delay_s": X} — stretch every ingress socket drain by
+    # X seconds (models a client reading slower than tokens are
+    # produced; drives the per-connection write timeout).
+    slow_client: Optional[Any] = None
+    # stall_stream: {"after": N, "stall_s": X} — the Nth streamed item
+    # this process yields is delayed X seconds (models a wedged decode
+    # step; drives the ingress stream-idle timeout).
+    stall_stream: Optional[Any] = None
+    # stall_replica_decode: {"after": N, "stall_s": X} — the Nth batched
+    # decode step this process's inference engine dispatches is delayed X
+    # seconds (models a wedged device/dispatch: the replica actor stays
+    # ALIVE but produces no tokens; drives the ingress stall detector
+    # RT_SERVE_STALL_S into a mid-stream failover).
+    stall_replica_decode: Optional[Any] = None
     # partition: {"conn": substr, "after_s": N, "heal_s": M?} — a
     # control-plane partition window: ``after_s`` seconds into the
     # process's life, force-close (and refuse to redial) every connection
@@ -84,6 +101,9 @@ class FaultSpec:
             corrupt_chunk=raw.get("corrupt_chunk"),
             truncate_spill=raw.get("truncate_spill"),
             drop_fetch_reply=raw.get("drop_fetch_reply"),
+            slow_client=raw.get("slow_client"),
+            stall_stream=raw.get("stall_stream"),
+            stall_replica_decode=raw.get("stall_replica_decode"),
             partition=raw.get("partition"),
         )
 
@@ -253,6 +273,57 @@ def _list_nodes() -> List[dict]:
     return state.list_nodes()
 
 
+def slow_client_delay_s() -> float:
+    """Chaos hook in the ingress write path: seconds to stretch each
+    socket drain (0.0 = fault inactive).  Injected INSIDE the drain the
+    write timeout wraps, so a delay longer than the timeout
+    deterministically trips the slow-client abort."""
+    fault = spec().slow_client
+    if not fault:
+        return 0.0
+    if isinstance(fault, dict):
+        return float(fault.get("delay_s", 1.0))
+    return float(fault)
+
+
+def stall_stream_s() -> float:
+    """Chaos hook in the replica stream path: seconds to stall before
+    yielding the next streamed item.  ``{"after": N, "stall_s": X}``
+    stalls exactly the Nth item this process yields (one-shot,
+    deterministic) — long enough X trips the ingress stream-idle
+    timeout mid-stream, after real tokens have already been sent."""
+    fault = spec().stall_stream
+    if not fault:
+        return 0.0
+    after = int(fault.get("after", 1)) if isinstance(fault, dict) else 1
+    n = _counters.get("stall_stream", 0) + 1
+    _counters["stall_stream"] = n
+    if n == after:
+        return float(fault.get("stall_s", 5.0)) \
+            if isinstance(fault, dict) else 5.0
+    return 0.0
+
+
+def stall_replica_decode_s() -> float:
+    """Chaos hook in the inference engine's batch loop: seconds to stall
+    before dispatching the next decode step.  ``{"after": N,
+    "stall_s": X}`` stalls exactly the Nth step this process dispatches
+    (one-shot, deterministic) — an X past RT_SERVE_STALL_S makes the
+    replica look wedged to the ingress while its actor stays ALIVE,
+    forcing the stall-detection half of mid-stream failover (replica
+    death exercises the other half)."""
+    fault = spec().stall_replica_decode
+    if not fault:
+        return 0.0
+    after = int(fault.get("after", 1)) if isinstance(fault, dict) else 1
+    n = _counters.get("stall_replica_decode", 0) + 1
+    _counters["stall_replica_decode"] = n
+    if n == after:
+        return float(fault.get("stall_s", 60.0)) \
+            if isinstance(fault, dict) else 60.0
+    return 0.0
+
+
 def wait_node_dead(node_id: str, timeout: float = 120.0) -> dict:
     """Block until the GCS records ``node_id`` as dead; returns its node
     record.  This is the recovery gate chaos tests key on — wall-clock
@@ -312,6 +383,61 @@ def wait_actor_dead(actor_id: str, timeout: float = 120.0) -> dict:
     raise TimeoutError(
         f"actor {actor_id[:12]} not marked dead within {timeout}s"
         + (f" (last query error: {last_err!r})" if last_err else ""))
+
+
+def kill_replica(deployment: Optional[str] = None, *,
+                 index: Optional[int] = None,
+                 actor_id: Optional[str] = None,
+                 mode: str = "sigkill",
+                 wait: bool = True,
+                 timeout: float = 120.0) -> dict:
+    """Kill one live serve replica mid-flight (chaos hook for the serving
+    fleet: failover, rolling restart, circuit-breaker tests).
+
+    Target selection: ``actor_id`` directly, or the ``index``-th (by
+    name, default first) ALIVE replica named ``_serve:<deployment>:*``.
+    ``mode="sigkill"`` SIGKILLs the hosting worker process — the abrupt
+    death, mid-decode, that failover must absorb (same-host clusters
+    only, like NodeKiller); it falls back to a GCS ``kill_actor`` when
+    the pid isn't known yet.  ``mode="kill"`` always goes through the
+    GCS.  With ``wait`` (default), returns only after the GCS records
+    the death, so callers can immediately assert on recovery."""
+    from ray_tpu_torch.util import state
+    alive = [a for a in state.list_actors() if a.get("state") == "ALIVE"]
+    if actor_id is not None:
+        victims = [a for a in alive if a.get("actor_id") == actor_id]
+    elif deployment is not None:
+        prefix = f"_serve:{deployment}:"
+        victims = sorted(
+            (a for a in alive
+             if (a.get("name") or "").startswith(prefix)),
+            key=lambda a: a.get("name") or "")
+        if index is not None:
+            victims = victims[index:index + 1]
+    else:
+        raise ValueError("kill_replica needs deployment= or actor_id=")
+    if not victims:
+        raise RuntimeError(
+            f"no live replica to kill (deployment={deployment!r}, "
+            f"index={index}, actor_id={actor_id!r})")
+    victim = victims[0]
+    vid = victim["actor_id"]
+    pid = None
+    if mode == "sigkill":
+        for w in state.list_workers():
+            if w.get("actor_id") == vid and w.get("pid"):
+                pid = w["pid"]
+                break
+        if pid is not None:
+            os.kill(pid, signal.SIGKILL)
+    if pid is None:   # mode == "kill", or the pid never reached the GCS
+        state._gcs_request({"type": "kill_actor", "actor_id": vid,
+                            "no_restart": True})
+    record = {"actor_id": vid, "name": victim.get("name"),
+              "pid": pid, "time": time.time()}
+    if wait:
+        wait_actor_dead(vid, timeout=timeout)
+    return record
 
 
 class NodeKiller:

@@ -273,3 +273,48 @@ def test_method_num_returns_decorator(ray_start):
     x, y = h.pair.remote()
     assert ray_tpu_torch.get(x, timeout=30) == "a"
     assert ray_tpu_torch.get(y, timeout=30) == "b"
+
+
+def test_kill_with_restart_restarts_once(ray_start):
+    """``kill(no_restart=False)`` restarts the actor when the GCS asks for
+    the kill; the raylet's later report of the old process's death must
+    not restart it a second time, which would leave two live processes
+    serving one actor."""
+    from ray_tpu_torch.util import state
+
+    @ray_tpu_torch.remote(max_restarts=-1)
+    class Phoenix:
+        def pid(self):
+            import os
+            return os.getpid()
+
+    a = Phoenix.remote()
+    first = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    ray_tpu_torch.kill(a, no_restart=False)
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            second = ray_tpu_torch.get(a.pid.remote(), timeout=10)
+            if second != first:
+                break
+        except Exception:
+            pass
+        assert time.monotonic() < deadline, "actor never restarted"
+        time.sleep(0.2)
+    time.sleep(2.0)       # the raylet reaps the old process in ~0.2 s
+    aid = a._actor_id
+    (rec,) = [r for r in state.list_actors() if r["actor_id"] == aid]
+    assert rec["num_restarts"] == 1, rec
+    # The node's worker table (reported with its stats) names one live
+    # process for the actor.
+    deadline = time.monotonic() + 30
+    while True:
+        pids = {w["pid"] for w in state.list_workers()
+                if w.get("actor_id") == aid}
+        if second in pids:
+            break
+        assert time.monotonic() < deadline, (pids, second)
+        time.sleep(0.5)
+    assert pids == {second}, (pids, second)
+    assert ray_tpu_torch.get(a.pid.remote(), timeout=10) == second
+    ray_tpu_torch.kill(a)

@@ -19,6 +19,7 @@ The port's runtime under ``test_data_integrity.py``'s cases, one for one.
 """
 
 import asyncio
+import contextlib
 import os
 import shutil
 
@@ -317,18 +318,35 @@ class _DirectPeer:
         return reply
 
 
+@contextlib.contextmanager
+def _no_forkserver():
+    """In-process raylets start no forkserver template.  The raylet reads
+    the switch when it is built, so it is set only around that and put
+    back after: later tests in this process start clusters that fork."""
+    old = os.environ.get("RT_DISABLE_FORKSERVER")
+    os.environ["RT_DISABLE_FORKSERVER"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RT_DISABLE_FORKSERVER", None)
+        else:
+            os.environ["RT_DISABLE_FORKSERVER"] = old
+
+
 class _Harness:
     """A GcsServer plus N real Raylets wired together in-process."""
 
     def __init__(self, n, store_capacity=8 * 1024 * 1024):
         from ray_tpu_torch._private.raylet import Raylet
-        os.environ["RT_DISABLE_FORKSERVER"] = "1"
         self.gcs = GcsServer()
         self.raylets = []
         for i in range(n):
             nid = NodeID.from_random()
-            r = Raylet(node_id=nid, gcs_address="", resources={"CPU": 1.0},
-                       store_capacity=store_capacity)
+            with _no_forkserver():
+                r = Raylet(node_id=nid, gcs_address="",
+                           resources={"CPU": 1.0},
+                           store_capacity=store_capacity)
             r.gcs_conn = _GcsConn(self.gcs)
             self.gcs.nodes[nid] = NodeInfo(
                 node_id=nid, address=f"node-{i}", store_name=r.store_name,
@@ -691,7 +709,6 @@ def test_push_receiver_rejects_corrupt_assembly(fast_retry):
 
 def test_raylet_sweeps_orphan_tmp_files_at_start():
     from ray_tpu_torch._private.raylet import Raylet
-    os.environ["RT_DISABLE_FORKSERVER"] = "1"
     import tempfile
     nid = NodeID.from_random()
     spill_dir = os.path.join(
@@ -701,8 +718,9 @@ def test_raylet_sweeps_orphan_tmp_files_at_start():
     keeper = os.path.join(spill_dir, "cafebabe.bin")
     open(orphan, "wb").write(b"torn tmp write")
     ot.write_spill_file(keeper, b"complete spill", do_fsync=False)
-    r = Raylet(node_id=nid, gcs_address="", resources={"CPU": 1.0},
-               store_capacity=1024 * 1024)
+    with _no_forkserver():
+        r = Raylet(node_id=nid, gcs_address="", resources={"CPU": 1.0},
+                   store_capacity=1024 * 1024)
     try:
         assert not os.path.exists(orphan)
         assert os.path.exists(keeper)   # complete spills survive the sweep
@@ -717,10 +735,10 @@ def test_raylet_sweeps_orphan_tmp_files_at_start():
 
 def test_node_stats_carry_data_plane_counters():
     from ray_tpu_torch._private.raylet import Raylet
-    os.environ["RT_DISABLE_FORKSERVER"] = "1"
     nid = NodeID.from_random()
-    r = Raylet(node_id=nid, gcs_address="", resources={"CPU": 1.0},
-               store_capacity=1024 * 1024)
+    with _no_forkserver():
+        r = Raylet(node_id=nid, gcs_address="", resources={"CPU": 1.0},
+                   store_capacity=1024 * 1024)
     try:
         r._objects_corrupted = 2
         r._pull_retries = 9

@@ -84,6 +84,24 @@ def test_four_gpu_actors_see_distinct_cards_and_a_fifth_waits(gpu_cluster):
         ray_tpu_torch.kill(a)
 
 
+def test_actor_placed_before_the_reap_waits_for_the_card(gpu_cluster):
+    """The GCS frees a killed actor's card when it asks for the kill and
+    may place the next GPU actor at once; the raylet frees the card's id
+    only when it reaps the old process.  The new actor waits for the
+    reap instead of failing its creation (serve's scale-down and delete
+    hit this: a replacement replica is created right after the kill)."""
+    actors = [GpuActor.remote() for _ in range(4)]
+    seen = ray_tpu_torch.get([a.visible.remote() for a in actors],
+                             timeout=120)
+    for round_ in range(3):
+        ray_tpu_torch.kill(actors[round_])
+        actors[round_] = GpuActor.remote()
+        assert ray_tpu_torch.get(actors[round_].visible.remote(),
+                                 timeout=120) == seen[round_]
+    for a in actors:
+        ray_tpu_torch.kill(a)
+
+
 @ray_tpu_torch.remote
 def resolve_default_device():
     return str(ray_tpu_torch.resolve_device())

@@ -4,8 +4,10 @@
   nothing of the JAX package (they keep their own copies instead), and
   name no ``ray_tpu.`` module in a string either (``-m ray_tpu._private...``
   would launch the JAX package's processes past the import check).
-* The port's runtime (``ray_tpu_torch/_private``) is clean under
-  ``ray_tpu``'s own linter, rtlint.
+* The port's runtime (``ray_tpu_torch/_private``) and the layers the
+  cluster's workers run on it (``dag``, ``runtime_env``, ``workflow``,
+  ``dashboard``, ``serve``) are clean under ``ray_tpu``'s own linter,
+  rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -51,7 +53,11 @@ def _port_files():
             "test_torch_observability", "test_torch_fault_injection",
             "test_torch_tracing_usage", "test_torch_chaos",
             "test_torch_partition_chaos", "test_torch_data_chaos",
-            "test_torch_native_sanitizers")]
+            "test_torch_native_sanitizers", "test_torch_runtime_env",
+            "test_torch_workflow_dag", "test_torch_dashboard",
+            "test_torch_serve", "test_torch_serve_resilience",
+            "test_torch_serve_streaming", "test_torch_serve_fleet",
+            "test_torch_serve_chaos", "test_torch_head_restart_serve")]
     assert len(files) > 10
     return files
 
@@ -113,13 +119,38 @@ def test_string_check_sees_a_launch_string():
     assert hits == ["ray_tpu._private.daemon_main"]
 
 
+# The runtime's layers above the core: workers run them (serve replicas,
+# the controller, the ingress), so they keep the core's rules.
+LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve")
+
+
 def test_port_runtime_is_rtlint_clean():
     from ray_tpu.tools.rtlint import lint_paths
-    result = lint_paths([str(PORT / "_private")])
+    paths = [PORT / "_private"] + [PORT / sub for sub in LAYERS]
+    result = lint_paths([str(p) for p in paths])
     assert not result.errors, result.errors
     assert result.findings == [], [
         f"{f.path}:{f.line} {f.rule}: {f.message}" for f in result.findings]
-    assert result.files_checked >= 25
+    assert result.files_checked >= 25 + 15
+
+
+def test_runtime_layers_are_held_to_the_import_and_string_rules():
+    """Every module of dag, runtime_env, workflow, dashboard and serve is
+    among the files the two checks above read, and none imports JAX or
+    ``ray_tpu`` or names a ``ray_tpu.`` module in a string."""
+    checked = set(_port_files())
+    for sub in LAYERS:
+        mods = sorted((PORT / sub).rglob("*.py"))
+        assert mods, sub
+        assert set(mods) <= checked, sub
+        for path in mods:
+            assert not _imported_roots(path) & FORBIDDEN, path
+            tree = ast.parse(path.read_text(), str(path))
+            docs = _docstrings(tree)
+            assert not [n.value for n in ast.walk(tree)
+                        if isinstance(n, ast.Constant)
+                        and isinstance(n.value, str) and id(n) not in docs
+                        and _JAX_PACKAGE_MODULE.search(n.value)], path
 
 
 def _handlers(path):
@@ -232,12 +263,19 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
 
 
 def test_options_of_unported_modules_raise():
-    """runtime_env and the DAG (.bind) wait for their modules (ROADMAP A2)
-    and say so instead of doing something else."""
+    """runtime_env and the DAG (.bind), stubs that raised until their
+    modules were ported, now do what the reference does: the scheduling
+    options carry the normalized runtime env and its pool key, and
+    ``.bind()`` returns a FunctionNode of the remote function."""
     import ray_tpu_torch
+    from ray_tpu_torch.dag import FunctionNode
     from ray_tpu_torch.remote_function import _build_scheduling
+    from ray_tpu_torch.runtime_env import env_hash
 
-    with pytest.raises(NotImplementedError, match="runtime_env"):
-        _build_scheduling({"runtime_env": {"env_vars": {"A": "1"}}})
-    with pytest.raises(NotImplementedError, match="DAG"):
-        ray_tpu_torch.remote(lambda: 1).bind()
+    out = _build_scheduling({"runtime_env": {"env_vars": {"A": "1"}}})
+    assert out["runtime_env"] == {"env_vars": {"A": "1"}}
+    assert out["env_key"] == env_hash({"env_vars": {"A": "1"}})
+    fn = ray_tpu_torch.remote(lambda x: x)
+    node = fn.bind(3)
+    assert isinstance(node, FunctionNode)
+    assert node._fn is fn and node._bound_args == (3,)

@@ -8,7 +8,10 @@ the observers see it (the actors channel, list_actors, list_tasks, the
 timeline, spans, autotune_totals); a second one-card actor waits for the
 first; a task without a card gets the logits as an equal CPU tensor.  Then
 a one-card actor survives its node's death on a cluster_utils.Cluster
-(the runtime_node_death step).  The tests need a CUDA card and skip
+(the runtime_node_death step).  Serve on the card: an LLMServer replica
+with num_gpus=1 streams over HTTP what an in-process engine gives, and a
+serve-batched flash forward matches the in-process one (the
+runtime_serve step, at a short engine).  The tests need a CUDA card and skip
 without one.  It imports nothing of JAX, so on the card it runs without
 the repo's conftest:
 
@@ -108,3 +111,21 @@ def test_gpu_actor_params_land_on_its_card(card_cluster):
     assert device == "cuda:0"
     assert total == pytest.approx(float(tree["wte"].sum()), rel=1e-5)
     ray_tpu_torch.kill(h)
+
+
+@pytest.mark.gpu
+def test_serve_from_a_gpu_replica(card_cluster):
+    chip_smoke, info = card_cluster
+    cfg, tree, tokens = _two_layers()
+    dev = torch.device("cuda", 0)
+    # The limit the runtime phase uses: the in-process bf16-against-f32
+    # error of the forward.
+    limit = chip_smoke.in_process_forward(dev, cfg, tree, tokens)[2]
+    serve_cfg = dict(chip_smoke.SERVE, max_prompt=128, max_new=16)
+    out = chip_smoke.runtime_serve(dev, cfg, tree, info["dashboard_address"],
+                                   limit, serve_cfg=serve_cfg)
+    assert out["http"]["streams"] == 12
+    assert out["api_serve"]["llm"]["running"] == 1
+    assert out["flash_launches"] == (
+        2 * len(out["flash_batch_sizes"]), 0, 0, 0, 0, 0)
+    assert out["flash_max_abs_diff_vs_in_process"] <= limit
