@@ -210,6 +210,29 @@ Every phase prints one JSON line and any failure exits nonzero:
            in-process forward of its row; its own launch counts (12
            flash forward launches a batch, nothing else) are the kernels
            line's launches_serve
+  runtime_train  train on the same cluster, after serve has given the
+           card back: GPT-2-small at phase_train's settings ([32, 1024],
+           bf16 over f32 params, flash, remat dots, ce_block 256, AdamW
+           3e-4, b2 0.95, wd 1e-4; weights from seed 0, step k's tokens
+           from seed 1000 + k) trained by TorchTrainer with one
+           num_gpus=1 worker, which must see exactly the card; two fits
+           of 12 steps, each checkpointing every 4 steps through
+           CheckpointStore and AsyncCheckpointWriter (params + AdamW
+           state + RNG states + the data cursor) and reporting each step
+           through session.report: the control, and the recovery run,
+           whose worker is SIGKILLed by kill_train_worker after step 9's
+           report (once step 8's checkpoint is committed) and recovered
+           by FailureConfig(max_failures=1) onto a new num_gpus=1 worker
+           that restores step 8 and runs steps 9-12; the recovery's
+           losses at steps 9-12 and its final params' sha256 equal the
+           control's bit for bit; the card is
+           free after each fit; the worker's cold start, ms/step (median
+           of steps 2-8, the step and its loss's one sync) beside
+           phase_train's in-process ms/step, the checkpoint's bytes, the
+           snapshot stall on the step loop, the async write, the restore
+           and kill-to-next-step seconds; the flash launches counted in
+           the workers' own processes (exactly 24/12/12 a step) are the
+           kernels line's launches_runtime_train
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -2552,8 +2575,344 @@ def runtime_serve(dev, cfg, tree, dashboard, limit, serve_cfg=None,
     return out
 
 
-def phase_runtime(dev, cfg, limit, smi, serve_phase=None):
-    """The runtime core on the card (see the module docstring)."""
+# ------------------------------------------------------------ runtime_train
+
+# The trainer's run (see the module docstring): [32, 1024] tokens a step,
+# 12 steps, a checkpoint every 4, the recovery run's worker SIGKILLed after
+# step 9's report (step 8's checkpoint is then the newest committed one).
+RUNTIME_TRAIN_STEPS = 12
+RUNTIME_TRAIN_CKPT_EVERY = 4
+RUNTIME_TRAIN_KILL_AFTER = 9
+RUNTIME_TRAIN_BATCH = (32, 1024)
+
+
+def train_tokens(vocab_size, step, B, S):
+    """The data cursor: step ``step``'s [B, S + 1] tokens, a function of
+    the step alone, so a resumed run reads the batches it would have."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 1000 + step)
+    return torch.randint(0, vocab_size, (B, S + 1), generator=gen)
+
+
+def params_sha256(params) -> str:
+    """sha256 over every leaf's name and bytes, in the tree's order."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, leaf in named_leaves(params):
+        h.update(name.encode())
+        h.update(tensor_sha256(leaf).encode())
+    return h.hexdigest()
+
+
+def train_worker_loop(config):
+    """The runtime_train step's train_loop_per_worker: GPT-2-small's
+    training at ``phase_train``'s settings on the worker's card (weights
+    from seed 0, tokens from ``train_tokens``), resumed from the newest
+    committed checkpoint of ``config["root"]`` when there is one.  Every
+    step reports its loss, its time (the step and its loss's one sync),
+    the wall clock and this process's launch counts; a checkpoint step
+    also its snapshot stall (``snapshot_to_host``, the only part on the
+    step loop) and the submit's wait.  With ``kill_after`` the first
+    incarnation waits, after that step's report, for its checkpoint write
+    to commit, says so in a file, and waits to be SIGKILLed."""
+    import os
+    wall0 = time.time()
+    t0 = time.perf_counter()
+    import torch
+    import_s = time.perf_counter() - t0
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.air import _tensor_tree, session
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.train._internal import checkpoint_store as cs
+    t0 = time.perf_counter()
+    dev = resolve_device(config["device"])
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    start_info = {
+        "wall_loop_start": wall0, "import_torch_s": import_s,
+        "cuda_init_s": time.perf_counter() - t0, "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_count": torch.cuda.device_count() if on_card else 0}
+    fields = config["fields"]
+    cfg = GPTConfig(**{**fields, "dtype": getattr(torch, fields["dtype"])})
+    fam = family(cfg)
+    t0 = time.perf_counter()
+    params, opt = fam.train_state(SEED, cfg, learning_rate=3e-4,
+                                  weight_decay=1e-4, device=dev)
+    step_fn = fam.train_step(cfg, opt)
+    sync(dev)
+    start_info["init_s"] = time.perf_counter() - t0
+    store = cs.CheckpointStore(config["root"], keep=2)
+    writer = cs.AsyncCheckpointWriter(store)
+    t0 = time.perf_counter()
+    rc = store.restore_latest()
+    start = 0
+    if rc is not None:
+        with torch.no_grad():
+            for (_, leaf), (_, saved) in zip(named_leaves(params),
+                                             named_leaves(rc.tree["params"])):
+                leaf.copy_(saved)
+        opt.load_state_dict(rc.tree["opt"])
+        rc.restore_host_rng()
+        start = rc.data_state
+        sync(dev)
+        start_info["restore_s"] = time.perf_counter() - t0
+    start_info["restored_from"] = start
+    start_info["wall_ready"] = time.time()
+    writes = []
+    B, S = config["batch"]
+    reset_launch_counts()
+    for step in range(start, config["steps"]):
+        tokens = train_tokens(cfg.vocab_size, step, B, S).to(dev)
+        t0 = time.perf_counter()
+        loss = float(step_fn(params, {"tokens": tokens})["loss"])
+        rec = {"step": step + 1, "loss": loss,
+               "step_ms": (time.perf_counter() - t0) * 1e3,
+               "wall": time.time(), "pid": os.getpid(),
+               "launches": launch_counts()}
+        if (step + 1) % config["ckpt_every"] == 0:
+            t0 = time.perf_counter()
+            host = cs.snapshot_to_host({"params": params,
+                                        "opt": opt.state_dict()})
+            t1 = time.perf_counter()
+            stalls = writer.stalls
+            fut = writer.submit(step + 1, host,
+                                rng_state=cs.capture_rng_state(),
+                                data_state=step + 1)
+            t_submit = time.perf_counter()
+            fut.add_done_callback(
+                lambda _, s=step + 1, t=t_submit: writes.append(
+                    (s, time.perf_counter() - t)))
+            rec.update(snapshot_ms=(t1 - t0) * 1e3,
+                       submit_wait_ms=(t_submit - t1) * 1e3,
+                       submit_stalled=writer.stalls > stalls,
+                       ckpt_bytes=sum(x.nbytes for x in
+                                      _tensor_tree.flatten(host)[0]))
+        if step == start:
+            rec.update(start_info)
+        session.report(rec)
+        if step + 1 == config.get("kill_after") and rc is None:
+            writer.wait()
+            with open(os.path.join(config["root"], "ready-to-kill"),
+                      "w") as f:
+                f.write(str(os.getpid()))
+            time.sleep(300)
+            raise RuntimeError("the worker was not killed")
+    writer.close()
+    session.report({"done": True, "params_sha256": params_sha256(params),
+                    "writes_s": sorted(writes), "pid": os.getpid(),
+                    "launches": launch_counts(),
+                    "writer_stalls": writer.stalls})
+
+
+def _train_fit(cfg, root, device, kill_after=None):
+    """One TorchTrainer fit of ``train_worker_loop`` with a num_gpus=1
+    worker (a CPU worker for ``device="cpu"``); with ``kill_after`` a
+    driver thread SIGKILLs the worker once it says its checkpoint is
+    committed, and FailureConfig(max_failures=1) recovers it.  Returns
+    (the fit's reports, its wall seconds, the kill record or None)."""
+    import threading
+
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.air.config import FailureConfig
+    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.util import fault_injection, state
+
+    killed = {}
+
+    def _killer():
+        # The worker writes its pid here once its checkpoint is committed;
+        # SIGKILL it when that pid has reached the GCS (before that,
+        # kill_train_worker falls back to a GCS kill).
+        flag = os.path.join(root, "ready-to-kill")
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            pid = 0
+            if os.path.exists(flag):
+                with open(flag) as f:
+                    pid = int(f.read() or 0)
+            if pid and any(w.get("pid") == pid
+                           for w in state.list_workers()):
+                killed.update(fault_injection.kill_train_worker(
+                    mode="sigkill"))
+                return
+            time.sleep(0.05)
+
+    thread = None
+    if kill_after is not None:
+        thread = threading.Thread(target=_killer, daemon=True)
+        thread.start()
+    t0 = time.perf_counter()
+    wall0 = time.time()
+    result = TorchTrainer(
+        train_worker_loop,
+        train_loop_config={
+            "fields": gpt_fields(cfg), "root": root,
+            "device": None if device.type == "cuda" else "cpu",
+            "batch": RUNTIME_TRAIN_BATCH if device.type == "cuda"
+            else (2, cfg.max_seq_len), "steps": RUNTIME_TRAIN_STEPS,
+            "ckpt_every": RUNTIME_TRAIN_CKPT_EVERY,
+            "kill_after": kill_after},
+        scaling_config=ScalingConfig(num_workers=1,
+                                     use_gpu=device.type == "cuda"),
+        run_config=RunConfig(failure_config=FailureConfig(
+            max_failures=1 if kill_after is not None else 0)),
+    ).fit()
+    secs = time.perf_counter() - t0
+    if thread is not None:
+        thread.join(timeout=60)
+        check(killed.get("pid") is not None,
+              f"the killer never SIGKILLed the worker: {killed}")
+    return result.metrics_history, secs, wall0, killed or None
+
+
+def _incarnations(history):
+    """The fit's reports grouped by worker process, in order."""
+    out = {}
+    for rec in history:
+        out.setdefault(rec["pid"], []).append(rec)
+    return list(out.values())
+
+
+def runtime_train(dev, cfg, in_process_ms=None) -> dict:
+    """Train on the runtime phase's cluster (see the module docstring): a
+    control fit and a recovery fit of GPT-2-small through TorchTrainer
+    with a num_gpus=1 worker.  Returns the step's numbers; the workers'
+    flash launches under ``launches``."""
+    import ray_tpu_torch as rt
+    on_card = dev.type == "cuda"
+    L = cfg.num_layers if on_card else 0
+    per_step = [2 * L, L, L, 0, 0, 0]
+    out = {"steps": RUNTIME_TRAIN_STEPS,
+           "ckpt_every": RUNTIME_TRAIN_CKPT_EVERY,
+           "kill_after": RUNTIME_TRAIN_KILL_AFTER,
+           "batch": list(RUNTIME_TRAIN_BATCH) if on_card else None,
+           "in_process_ms_per_step": in_process_ms}
+    total = [0] * 6
+    for name, kill_after in (("control", None),
+                             ("recovery", RUNTIME_TRAIN_KILL_AFTER)):
+        free_card(on_card)
+        apps_before = card_apps() if on_card else {}
+        root = tempfile.mkdtemp(prefix="rtt_train_ckpt_")
+        try:
+            hist, secs, wall0, killed = _train_fit(cfg, root, dev,
+                                                   kill_after)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        steps = [r for r in hist if "step" in r]
+        done = [r for r in hist if r.get("done")]
+        check(len(done) == 1, f"{name}: the fit ended without its final "
+              f"report ({len(done)})")
+        inc = _incarnations(steps)
+        run = {"fit_s": secs, "params_sha256": done[0]["params_sha256"],
+               "writes_s": done[0]["writes_s"],
+               "writer_stalls": done[0]["writer_stalls"],
+               "incarnations": len(inc)}
+        first = inc[0][0]
+        # Cold start: from the fit's call to the worker ready to step (its
+        # process, torch's import, CUDA's init, the weights and optimizer).
+        run["cold_start_s"] = first["wall_ready"] - wall0
+        run["fit_to_loop_start_s"] = first["wall_loop_start"] - wall0
+        for k in ("import_torch_s", "cuda_init_s", "init_s",
+                  "cuda_visible_devices", "device_count"):
+            run[k] = first[k]
+        if on_card:
+            check(first["cuda_visible_devices"] == "0" and
+                  first["device_count"] == 1,
+                  f"{name}: the worker sees {first['cuda_visible_devices']!r}"
+                  f" ({first['device_count']} devices), not exactly the "
+                  f"card")
+        # The losses by step: the last report of each step (the recovery
+        # run reports step 9 twice, before the kill and after).
+        losses = {r["step"]: r["loss"] for r in steps}
+        check(sorted(losses) == list(range(1, RUNTIME_TRAIN_STEPS + 1)),
+              f"{name}: steps {sorted(losses)}")
+        run["losses"] = [losses[s] for s in sorted(losses)]
+        timed = [r["step_ms"] for r in inc[0] if 2 <= r["step"] <= 8]
+        run["ms_per_step"] = statistics.median(timed)
+        run["step_ms"] = [r["step_ms"] for r in steps]
+        ck = [r for r in steps if "snapshot_ms" in r]
+        run["ckpt_bytes"] = ck[0]["ckpt_bytes"]
+        run["snapshot_ms"] = [r["snapshot_ms"] for r in ck]
+        run["submit_wait_ms"] = [r["submit_wait_ms"] for r in ck]
+        # Launches in the workers' own processes: each incarnation's last
+        # count, exactly per_step for each step it ran.
+        for recs in inc:
+            n = list(recs[-1]["launches"])
+            ran = len(recs)
+            check(n == [ran * k for k in per_step],
+                  f"{name}: a worker launched {n} in {ran} steps, "
+                  f"expected {per_step} a step")
+            total = [a + b for a, b in zip(total, n)]
+        if killed is not None:
+            check(len(inc) == 2, f"recovery: {len(inc)} worker processes")
+            again = inc[1][0]
+            check(again["restored_from"] == RUNTIME_TRAIN_KILL_AFTER - 1,
+                  f"recovery restored step {again['restored_from']}, not "
+                  f"{RUNTIME_TRAIN_KILL_AFTER - 1}")
+            check(killed["pid"] == inc[0][0]["pid"],
+                  f"the killed pid {killed['pid']} is not the first "
+                  f"worker's {inc[0][0]['pid']}")
+            run["restore_s"] = again["restore_s"]
+            run["kill_to_next_step_s"] = again["wall"] - killed["time"]
+            run["kill_to_loop_start_s"] = (again["wall_loop_start"] -
+                                           killed["time"])
+            run["kill_to_ready_s"] = again["wall_ready"] - killed["time"]
+            run["recovered_import_torch_s"] = again["import_torch_s"]
+        out[name] = run
+        free_card(on_card, apps_before=apps_before)
+    ctl, rec = out["control"], out["recovery"]
+    same_losses = ctl["losses"][RUNTIME_TRAIN_KILL_AFTER - 1:] == \
+        rec["losses"][RUNTIME_TRAIN_KILL_AFTER - 1:]
+    same_params = ctl["params_sha256"] == rec["params_sha256"]
+    out["resume_bit_identical"] = same_losses and same_params
+    out["same_losses_all_steps"] = ctl["losses"] == rec["losses"]
+    check(same_losses, f"the recovered losses {rec['losses']} differ from "
+          f"the control's {ctl['losses']} after the kill")
+    check(same_params, "the recovered params differ from the control's")
+    check(all(math.isfinite(x) for x in ctl["losses"]),
+          f"control losses {ctl['losses']}")
+    out["ms_per_step"] = ctl["ms_per_step"]
+    out["ms_vs_in_process"] = (ctl["ms_per_step"] / in_process_ms
+                               if in_process_ms else None)
+    out["cold_start_s"] = ctl["cold_start_s"]
+    out["ckpt_bytes"] = ctl["ckpt_bytes"]
+    out["snapshot_stall_ms"] = statistics.median(
+        ctl["snapshot_ms"] + rec["snapshot_ms"])
+    out["ckpt_write_s"] = statistics.median(
+        [s for _, s in ctl["writes_s"] + rec["writes_s"]])
+    out["restore_s"] = rec["restore_s"]
+    out["kill_to_next_step_s"] = rec["kill_to_next_step_s"]
+    out["launches"] = tuple(total)
+    return out
+
+
+def free_card(on_card, apps_before=None, timeout=60):
+    """Wait until the node has its card back (and, after a fit, until
+    nvidia-smi lists no more processes on it than before the fit)."""
+    import ray_tpu_torch as rt
+    if not on_card:
+        return
+    deadline = time.monotonic() + timeout
+    while True:
+        free = rt.available_resources().get("GPU") == 1.0
+        apps = card_apps()
+        if free and (apps_before is None or len(apps) <= len(apps_before)):
+            return
+        check(time.monotonic() < deadline, f"the card is not free: GPU "
+              f"{rt.available_resources().get('GPU')}, apps {apps} "
+              f"(before {apps_before})")
+        time.sleep(0.2)
+
+def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
+                  train_ms=None):
+    """The runtime core on the card (see the module docstring).
+    ``train_cfg`` is the training configuration of runtime_train (bf16,
+    flash, remat dots, its ce_block) and ``train_ms`` the in-process
+    ms/step printed beside the trainer's."""
     import torch
 
     import ray_tpu_torch as rt
@@ -2584,6 +2943,9 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None):
         serve_out = runtime_serve(dev, cfg, tree, info["dashboard_address"],
                                   out["limit"], serve_phase=serve_phase)
         serve_out["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_out = runtime_train(dev, train_cfg, train_ms)
+        train_out["step_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = [e for e in os.listdir("/dev/shm")
@@ -2595,6 +2957,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None):
          tokens=list(RUNTIME_TOKENS), **out)
     emit("runtime_observe", card=smi, **observe)
     emit("runtime_serve", card=smi, **serve_out)
+    emit("runtime_train", card=smi, **train_out)
     t0 = time.perf_counter()
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,
@@ -2602,6 +2965,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None):
     out["actor_launches"] = tuple(a + b for a, b in zip(
         out["actor_launches"], death["actor_launches"]))
     out["serve_launches"] = serve_out["flash_launches"]
+    out["train_launches"] = train_out["launches"]
     return out
 
 
@@ -3256,7 +3620,8 @@ def run() -> int:
     torch.cuda.empty_cache()
     runtime = phase_runtime(dev, dataclasses.replace(
         cfg, dtype=torch.bfloat16, attention="flash"),
-        fwd["bf16_flash_max_abs_diff_vs_f32"], smi, fwd["serve"])
+        fwd["bf16_flash_max_abs_diff_vs_f32"], smi, fwd["serve"],
+        dataclasses.replace(cfg, **train_kw), train["ms"])
     emit("total", seconds=time.monotonic() - _T0)
     pipe_launches = [pipe["gpipe"]["launches"][i] +
                      pipe["1f1b"]["launches"][i] for i in range(3)]
@@ -3277,10 +3642,12 @@ def run() -> int:
          "launches": infer_launches[0] + train["launches"][0] +
          llama_infer[0] + llama_train["launches"][0] +
          moe_train["launches"][0] + pipe_launches[0] +
-         runtime["actor_launches"][0] + runtime["serve_launches"][0],
+         runtime["actor_launches"][0] + runtime["serve_launches"][0] +
+         runtime["train_launches"][0],
          "launches_inference": infer_launches[0],
          "launches_runtime": runtime["actor_launches"][0],
          "launches_serve": runtime["serve_launches"][0],
+         "launches_runtime_train": runtime["train_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],
@@ -3300,8 +3667,10 @@ def run() -> int:
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1] + llama_train["launches"][1] +
-         moe_train["launches"][1] + pipe_launches[1],
+         moe_train["launches"][1] + pipe_launches[1] +
+         runtime["train_launches"][1],
          "launches_train": train["launches"][1],
+         "launches_runtime_train": runtime["train_launches"][1],
          "launches_llama_train": llama_train["launches"][1],
          "launches_moe_train": moe_train["launches"][1],
          "launches_llama_inference": llama_infer[1],
@@ -3316,8 +3685,10 @@ def run() -> int:
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2] + llama_train["launches"][2] +
-         moe_train["launches"][2] + pipe_launches[2],
+         moe_train["launches"][2] + pipe_launches[2] +
+         runtime["train_launches"][2],
          "launches_train": train["launches"][2],
+         "launches_runtime_train": runtime["train_launches"][2],
          "launches_llama_train": llama_train["launches"][2],
          "launches_moe_train": moe_train["launches"][2],
          "launches_llama_inference": llama_infer[2],

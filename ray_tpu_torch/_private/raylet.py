@@ -530,6 +530,12 @@ class Raylet:
         # through the util.metrics sink instead.
         from ray_tpu_torch.serve import metrics as _serve_metrics
         out.update(_serve_metrics.stats())
+        # Train resilience counters (gang recoveries, preemption handoffs,
+        # checkpoint write/restore/corruption) for THIS process; the
+        # train-worker actors and driver supervisors reach the GCS through
+        # the util.metrics sink instead.
+        from ray_tpu_torch.train import metrics as _train_metrics
+        out.update(_train_metrics.stats())
         # loop_lag_ms is merged by the caller on the loop thread —
         # LoopWatchdog.record() mutates watchdog state.
         return out
@@ -671,11 +677,17 @@ class Raylet:
             res = getattr(w, "actor_resources", None)
             if res is not None:
                 resources, pg_id, bidx = res
-                pool = self.bundles.get((pg_id, bidx),
-                                        self.resources_available) \
-                    if pg_id else self.resources_available
-                for k, v in resources.items():
-                    pool[k] = pool.get(k, 0.0) + v
+                # An actor charged to a bundle returns its resources to the
+                # bundle.  When the bundle went first (its group removed
+                # while the killed actor's process was still exiting, as a
+                # train gang's teardown does), return_bundle has already
+                # given the node the bundle's whole shape back: adding the
+                # actor's share to the node as well would mint capacity.
+                pool = self.bundles.get((pg_id, bidx)) if pg_id \
+                    else self.resources_available
+                if pool is not None:
+                    for k, v in resources.items():
+                        pool[k] = pool.get(k, 0.0) + v
                 self._give_gpus(w.gpu_ids)
                 # A lease queued while this actor still held its resources
                 # has no later wake-up — kill_actor_worker only signals the
@@ -901,6 +913,8 @@ class Raylet:
         pool = self.bundles.get((pg_id, msg.get("bundle_index", 0)),
                                 self.resources_available) \
             if pg_id else self.resources_available
+        if pool is self.resources_available:
+            pg_id = None      # charged to the node pool, returned there
         gpu_ids = await self._take_gpus_after_reap(resources)
         for k, v in resources.items():
             pool[k] = pool.get(k, 0.0) - v

@@ -23,9 +23,9 @@ kills plus wall-clock sleeps.  Two halves:
   ``ray_tpu_torch.remote(NodeKiller)``.
 
 The serve hooks (slow clients, stalled streams and decodes,
-``kill_replica``) drive the serving fleet's chaos cases.  The train hooks
-of the reference (preemption notices, slow checkpoint writes,
-``kill_train_worker``) come with train.
+``kill_replica``) drive the serving fleet's chaos cases; the train hooks
+(preemption notices, slow checkpoint writes, ``kill_train_worker``) drive
+the train gang's.
 
 Everything here is import-light (stdlib only at module load) because the
 forkserver template and the protocol layer import it inside daemons.
@@ -84,6 +84,21 @@ class FaultSpec:
     # reconnect/resurrection machinery end to end (protocol redial, GCS
     # grace timer, raylet resync).
     partition: Optional[Dict[str, Any]] = None
+    # Training faults (see train/_internal/worker_group.py session and
+    # train/_internal/checkpoint_store.py):
+    # preempt_notice: {"after_s": X, "grace_s": Y, "rank": R?} — X
+    # seconds into the worker process's train loop, deliver a preemption
+    # notice with a Y-second grace deadline (optionally only to world
+    # rank R).  The worker finishes its in-flight microbatch, writes a
+    # final checkpoint at the next step boundary, and exits CLEAN — the
+    # gang supervisor records a planned handoff (``preemptions``), not a
+    # failure, and restarts without burning recovery budget.
+    preempt_notice: Optional[Dict[str, Any]] = None
+    # slow_ckpt_io: {"delay_s": X} — stretch every checkpoint shard
+    # write by X seconds (models slow/remote checkpoint storage; drives
+    # the async writer's one-in-flight backpressure so overlap tests are
+    # deterministic instead of racing fast local disk).
+    slow_ckpt_io: Optional[Any] = None
 
     @classmethod
     def from_env(cls) -> "FaultSpec":
@@ -105,6 +120,8 @@ class FaultSpec:
             stall_stream=raw.get("stall_stream"),
             stall_replica_decode=raw.get("stall_replica_decode"),
             partition=raw.get("partition"),
+            preempt_notice=raw.get("preempt_notice"),
+            slow_ckpt_io=raw.get("slow_ckpt_io"),
         )
 
 
@@ -304,6 +321,43 @@ def stall_stream_s() -> float:
     return 0.0
 
 
+def slow_ckpt_io_s() -> float:
+    """Chaos hook in the checkpoint shard-write path: seconds to stretch
+    each durable shard write (0.0 = fault inactive).  Injected inside
+    ``CheckpointStore.save`` per shard, so a multi-shard checkpoint under
+    fault takes long enough that the NEXT step's submit deterministically
+    hits the async writer's one-in-flight backpressure."""
+    fault = spec().slow_ckpt_io
+    if not fault:
+        return 0.0
+    if isinstance(fault, dict):
+        return float(fault.get("delay_s", 0.5))
+    return float(fault)
+
+
+_preempt_anchor: Optional[float] = None
+
+
+def preempt_notice_at(rank: int) -> Optional[Tuple[float, float]]:
+    """``(notice_time_monotonic, grace_s)`` for this train-worker process,
+    or None when the active spec has no preempt fault targeting world
+    rank ``rank``.  Anchored at the first matching consultation (workers
+    consult at train-loop start, so the anchor ≈ loop start); the worker
+    treats ``notice_time`` as the moment the platform's preemption signal
+    lands and ``grace_s`` as the eviction deadline that follows."""
+    global _preempt_anchor
+    p = spec().preempt_notice
+    if not p:
+        return None
+    want = p.get("rank")
+    if want is not None and int(want) != int(rank):
+        return None
+    if _preempt_anchor is None:
+        _preempt_anchor = time.monotonic()
+    notice = _preempt_anchor + float(p.get("after_s", 0.0))
+    return notice, float(p.get("grace_s", 30.0))
+
+
 def stall_replica_decode_s() -> float:
     """Chaos hook in the inference engine's batch loop: seconds to stall
     before dispatching the next decode step.  ``{"after": N,
@@ -420,6 +474,62 @@ def kill_replica(deployment: Optional[str] = None, *,
         raise RuntimeError(
             f"no live replica to kill (deployment={deployment!r}, "
             f"index={index}, actor_id={actor_id!r})")
+    victim = victims[0]
+    vid = victim["actor_id"]
+    pid = None
+    if mode == "sigkill":
+        for w in state.list_workers():
+            if w.get("actor_id") == vid and w.get("pid"):
+                pid = w["pid"]
+                break
+        if pid is not None:
+            os.kill(pid, signal.SIGKILL)
+    if pid is None:   # mode == "kill", or the pid never reached the GCS
+        state._gcs_request({"type": "kill_actor", "actor_id": vid,
+                            "no_restart": True})
+    record = {"actor_id": vid, "name": victim.get("name"),
+              "pid": pid, "time": time.time()}
+    if wait:
+        wait_actor_dead(vid, timeout=timeout)
+    return record
+
+
+def kill_train_worker(group: Optional[str] = None, *,
+                      rank: Optional[int] = None,
+                      actor_id: Optional[str] = None,
+                      mode: str = "sigkill",
+                      wait: bool = True,
+                      timeout: float = 120.0) -> dict:
+    """Kill one live train-worker actor mid-step (chaos hook for the gang
+    supervisor: unplanned-death recovery, restart-budget, deterministic-
+    resume tests).
+
+    Target selection: ``actor_id`` directly, or an ALIVE actor named
+    ``_train:<group>:<rank>`` (the names the WorkerGroup registers; omit
+    ``group`` to match any gang, omit ``rank`` for the lowest rank).
+    ``mode="sigkill"`` SIGKILLs the hosting worker process — the abrupt
+    mid-step death gang supervision must absorb (same-host clusters only,
+    like NodeKiller); it falls back to a GCS ``kill_actor`` when the pid
+    isn't known yet.  ``mode="kill"`` always goes through the GCS.  With
+    ``wait`` (default), returns only after the GCS records the death, so
+    callers can immediately assert on gang teardown/recovery."""
+    from ray_tpu_torch.util import state
+    alive = [a for a in state.list_actors() if a.get("state") == "ALIVE"]
+    if actor_id is not None:
+        victims = [a for a in alive if a.get("actor_id") == actor_id]
+    else:
+        prefix = f"_train:{group}:" if group is not None else "_train:"
+        victims = sorted(
+            (a for a in alive
+             if (a.get("name") or "").startswith(prefix)),
+            key=lambda a: a.get("name") or "")
+        if rank is not None:
+            victims = [a for a in victims
+                       if (a.get("name") or "").endswith(f":{rank}")]
+    if not victims:
+        raise RuntimeError(
+            f"no live train worker to kill (group={group!r}, "
+            f"rank={rank}, actor_id={actor_id!r})")
     victim = victims[0]
     vid = victim["actor_id"]
     pid = None

@@ -531,3 +531,42 @@ def pipeline_memory(rank, world, case, M):
     return pl.schedule_activation_bytes(
         _pp_params(tree, cfg), {"tokens": torch.from_numpy(tokens)}, cfg,
         MeshSpec(dp=world // 2, pp=2).build(CPU), num_microbatches=M)
+
+
+# --------------------------------------------------------- DCP checkpoint
+
+def dcp_world8(rank, world, root):
+    """tests/test_torch_orbax_checkpoint.py on 8 ranks: a sharded save and
+    restore on dp=2 x fsdp=2 x tp=2, then the envelope on dp=8."""
+    from ray_tpu_torch.train.torch import (TorchCheckpoint, restore_sharded,
+                                           save_sharded)
+    out = {}
+    spec = MeshSpec(dp=2, fsdp=2, tp=2)
+    mesh = spec.build(CPU)
+    rules = LogicalAxisRules.for_transformer(spec)
+    axes = {"w": ("embed", "mlp"), "b": ("mlp",)}
+    tree = shard_params({"w": torch.arange(64.0).reshape(8, 8),
+                         "b": torch.ones(8)}, mesh, rules, axes)
+    path = os.path.join(root, "ck")
+    save_sharded(path, tree)
+    # Restore onto the SAME shardings: shards land in place.
+    target = shard_params({"w": torch.zeros(8, 8), "b": torch.zeros(8)},
+                          mesh, rules, axes)
+    restored = restore_sharded(path, target=target)
+    out["same_placements"] = all(
+        restored[k].placements == tree[k].placements for k in tree)
+    out["w"], out["b"] = _np(restored["w"]), _np(restored["b"])
+    out["w_local_equal"] = bool(torch.equal(restored["w"].to_local(),
+                                            tree["w"].to_local()))
+    # Without a target: whole tensors on the CPU.
+    flat = restore_sharded(path)
+    out["flat_w"] = flat["w"].numpy()
+    out["flat_is_plain"] = not isinstance(flat["w"], DTensor)
+
+    MeshSpec(dp=8).build(CPU)
+    state = {"p": torch.full((16, 4), 3.0)}
+    ckpt = TorchCheckpoint.from_sharded_state(
+        state, path=os.path.join(root, "env"), step=7)
+    out["meta"] = ckpt.meta()
+    out["p"] = ckpt.load_state()["p"].numpy()
+    return out

@@ -24,3 +24,11 @@ def ray_start():
     yield
     ray_tpu_torch.shutdown()
 
+
+
+@pytest.fixture
+def ray_start_fresh():
+    """Function-scoped cluster for tests that mutate cluster state."""
+    ray_tpu_torch.init(num_cpus=4)
+    yield
+    ray_tpu_torch.shutdown()

@@ -163,8 +163,18 @@ def test_placement_group_gpu_bundles_give_distinct_cards(gpu_cluster):
     remove_placement_group(pg)
 
 
+def _hermetic_env():
+    """The pytest process's environment without the runtime's switches
+    (``RT_*``) and the card mask: an earlier test file in the same xdist
+    worker may have left them set (``RT_DISABLE_FORKSERVER=1`` starts a
+    cluster without its fork template), and a driver must see only what
+    its test gives it."""
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith("RT_") and k != "CUDA_VISIBLE_DEVICES"}
+
+
 def _driver(code, env, timeout=120):
-    env = dict(os.environ, PYTHONPATH=ROOT, **env)
+    env = dict(_hermetic_env(), PYTHONPATH=ROOT, **env)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-3000:]

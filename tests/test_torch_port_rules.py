@@ -6,8 +6,8 @@
   would launch the JAX package's processes past the import check).
 * The port's runtime (``ray_tpu_torch/_private``) and the layers the
   cluster's workers run on it (``dag``, ``runtime_env``, ``workflow``,
-  ``dashboard``, ``serve``) are clean under ``ray_tpu``'s own linter,
-  rtlint.
+  ``dashboard``, ``serve``, ``air``, ``train``) are clean under
+  ``ray_tpu``'s own linter, rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -57,7 +57,11 @@ def _port_files():
             "test_torch_workflow_dag", "test_torch_dashboard",
             "test_torch_serve", "test_torch_serve_resilience",
             "test_torch_serve_streaming", "test_torch_serve_fleet",
-            "test_torch_serve_chaos", "test_torch_head_restart_serve")]
+            "test_torch_serve_chaos", "test_torch_head_restart_serve",
+            "_torch_train_loops", "test_torch_air", "test_torch_train",
+            "test_torch_train_resilience", "test_torch_train_chaos",
+            "test_torch_train_torch_trainer", "test_torch_train_gpu",
+            "test_torch_collective", "test_torch_orbax_checkpoint")]
     assert len(files) > 10
     return files
 
@@ -120,8 +124,10 @@ def test_string_check_sees_a_launch_string():
 
 
 # The runtime's layers above the core: workers run them (serve replicas,
-# the controller, the ingress), so they keep the core's rules.
-LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve")
+# the controller, the ingress, train workers), so they keep the core's
+# rules.
+LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve", "air",
+          "train")
 
 
 def test_port_runtime_is_rtlint_clean():
@@ -135,9 +141,10 @@ def test_port_runtime_is_rtlint_clean():
 
 
 def test_runtime_layers_are_held_to_the_import_and_string_rules():
-    """Every module of dag, runtime_env, workflow, dashboard and serve is
-    among the files the two checks above read, and none imports JAX or
-    ``ray_tpu`` or names a ``ray_tpu.`` module in a string."""
+    """Every module of dag, runtime_env, workflow, dashboard, serve, air
+    and train is among the files the two checks above read, and none
+    imports JAX or ``ray_tpu`` or names a ``ray_tpu.`` module in a
+    string."""
     checked = set(_port_files())
     for sub in LAYERS:
         mods = sorted((PORT / sub).rglob("*.py"))

@@ -11,7 +11,9 @@ a one-card actor survives its node's death on a cluster_utils.Cluster
 (the runtime_node_death step).  Serve on the card: an LLMServer replica
 with num_gpus=1 streams over HTTP what an in-process engine gives, and a
 serve-batched flash forward matches the in-process one (the
-runtime_serve step, at a short engine).  The tests need a CUDA card and skip
+runtime_serve step, at a short engine).  Train on the card: a num_gpus=1
+TorchTrainer worker SIGKILLed mid-run resumes bit-identically (the
+runtime_train step).  The tests need a CUDA card and skip
 without one.  It imports nothing of JAX, so on the card it runs without
 the repo's conftest:
 
@@ -129,3 +131,19 @@ def test_serve_from_a_gpu_replica(card_cluster):
     assert out["flash_launches"] == (
         2 * len(out["flash_batch_sizes"]), 0, 0, 0, 0, 0)
     assert out["flash_max_abs_diff_vs_in_process"] <= limit
+
+
+@pytest.mark.gpu
+def test_train_and_resume_in_a_gpu_trainer(card_cluster):
+    """The runtime_train step at 2 layers: a control fit and a fit whose
+    num_gpus=1 worker is SIGKILLed after step 9 and recovered from step
+    8's checkpoint; the same losses and params, bit for bit."""
+    chip_smoke, _ = card_cluster
+    cfg = dataclasses.replace(
+        GPTConfig.gpt2_small(), num_layers=2, dtype=torch.bfloat16,
+        attention="flash", remat=True, remat_policy="dots", ce_block=256)
+    out = chip_smoke.runtime_train(torch.device("cuda", 0), cfg)
+    assert out["resume_bit_identical"]
+    assert out["recovery"]["incarnations"] == 2
+    # 13 steps ran in the recovery's two workers and 12 in the control's.
+    assert out["launches"] == (4 * 25, 2 * 25, 2 * 25, 0, 0, 0)
