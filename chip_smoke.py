@@ -233,6 +233,26 @@ Every phase prints one JSON line and any failure exits nonzero:
            and kill-to-next-step seconds; the flash launches counted in
            the workers' own processes (exactly 24/12/12 a step) are the
            kernels line's launches_runtime_train
+  runtime_data  train from a Dataset on the same cluster, after
+           runtime_train: 16 blocks of 32 windows of [32, 1024]'s length
+           plus the target token (tokens from seed 2000), from_numpy and
+           random_shuffle(seed=0), which is push-based at 16 blocks; a
+           TorchTrainer with one num_gpus=1 worker and datasets={"train":
+           ds} trains GPT-2-small at phase_train's settings (weights from
+           seed 0), one step per batch of get_dataset_shard("train")
+           .iter_device_batches(batch_size=32) (pinned staging buffers, a
+           side stream, the next copy in flight during the step); each
+           step reports its loss, the sha256 of its tokens and how long
+           the loop waited for the batch; the hashes equal those of the
+           same Dataset read on the driver with iter_batches(batch_size=
+           32), the losses equal an in-process run from the same init on
+           those batches (within DATA_LOSS_RTOL; whether bit-identical is
+           printed), the flash launches counted in the worker are exactly
+           24/12/12 a step (the kernels line's launches_runtime_data);
+           ms/step (median of steps 2-16) beside runtime_train's steps
+           with no checkpoint write in flight, the ingest wait per step,
+           the host-to-device bytes and GB/s, the shuffle's seconds and
+           the worker's cold start
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -2665,14 +2685,17 @@ def train_worker_loop(config):
     writes = []
     B, S = config["batch"]
     reset_launch_counts()
+    submitted = 0
     for step in range(start, config["steps"]):
         tokens = train_tokens(cfg.vocab_size, step, B, S).to(dev)
+        write_in_flight = len(writes) < submitted
         t0 = time.perf_counter()
         loss = float(step_fn(params, {"tokens": tokens})["loss"])
         rec = {"step": step + 1, "loss": loss,
                "step_ms": (time.perf_counter() - t0) * 1e3,
                "wall": time.time(), "pid": os.getpid(),
-               "launches": launch_counts()}
+               "launches": launch_counts(),
+               "write_in_flight": write_in_flight}
         if (step + 1) % config["ckpt_every"] == 0:
             t0 = time.perf_counter()
             host = cs.snapshot_to_host({"params": params,
@@ -2682,6 +2705,7 @@ def train_worker_loop(config):
             fut = writer.submit(step + 1, host,
                                 rng_state=cs.capture_rng_state(),
                                 data_state=step + 1)
+            submitted += 1
             t_submit = time.perf_counter()
             fut.add_done_callback(
                 lambda _, s=step + 1, t=t_submit: writes.append(
@@ -2834,6 +2858,9 @@ def runtime_train(dev, cfg, in_process_ms=None) -> dict:
         timed = [r["step_ms"] for r in inc[0] if 2 <= r["step"] <= 8]
         run["ms_per_step"] = statistics.median(timed)
         run["step_ms"] = [r["step_ms"] for r in steps]
+        run["write_free_step_ms"] = [r["step_ms"] for r in inc[0]
+                                     if r["step"] >= 2
+                                     and not r["write_in_flight"]]
         ck = [r for r in steps if "snapshot_ms" in r]
         run["ckpt_bytes"] = ck[0]["ckpt_bytes"]
         run["snapshot_ms"] = [r["snapshot_ms"] for r in ck]
@@ -2876,6 +2903,7 @@ def runtime_train(dev, cfg, in_process_ms=None) -> dict:
     check(all(math.isfinite(x) for x in ctl["losses"]),
           f"control losses {ctl['losses']}")
     out["ms_per_step"] = ctl["ms_per_step"]
+    out["write_free_step_ms"] = ctl["write_free_step_ms"]
     out["ms_vs_in_process"] = (ctl["ms_per_step"] / in_process_ms
                                if in_process_ms else None)
     out["cold_start_s"] = ctl["cold_start_s"]
@@ -2906,6 +2934,192 @@ def free_card(on_card, apps_before=None, timeout=60):
               f"{rt.available_resources().get('GPU')}, apps {apps} "
               f"(before {apps_before})")
         time.sleep(0.2)
+
+# ------------------------------------------------------------- runtime_data
+
+# The Dataset the trainer reads: 16 blocks of 32 windows of [32, 1024]'s
+# length plus the target token, shuffled push-based; one step per batch of
+# 32, so 16 steps.  The losses of the trainer and of an in-process run on
+# the same batches agree within DATA_LOSS_RTOL (the same code on the same
+# card; whether they are bit-identical is printed).
+RUNTIME_DATA_BLOCKS = 16
+DATA_LOSS_RTOL = 1e-3
+
+
+def data_windows(vocab_size, B, S):
+    """The Dataset's rows: RUNTIME_DATA_BLOCKS * B windows of S + 1
+    tokens, from seed 2000."""
+    import numpy as np
+    gen = np.random.default_rng(SEED + 2000)
+    return gen.integers(0, vocab_size, (RUNTIME_DATA_BLOCKS * B, S + 1),
+                        dtype=np.int64)
+
+
+def tokens_sha256(arr) -> str:
+    import hashlib
+
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def data_worker_loop(config):
+    """The runtime_data step's train_loop_per_worker: GPT-2-small at
+    ``phase_train``'s settings on the worker's card (weights from seed 0),
+    one step per batch of the trainer's dataset shard through
+    ``iter_device_batches``.  Every step reports its loss, its time (the
+    step and its loss's one sync), how long the loop waited for the batch
+    and the sha256 of the batch's tokens; the last report adds the launch
+    counts and the ingest's bytes, copy times, host submit times and
+    pinned buffers."""
+    import os
+    wall0 = time.time()
+    import torch
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.train.data_parallel_trainer import get_dataset_shard
+    dev = resolve_device(config["device"])
+    fields = config["fields"]
+    cfg = GPTConfig(**{**fields, "dtype": getattr(torch, fields["dtype"])})
+    fam = family(cfg)
+    params, opt = fam.train_state(SEED, cfg, learning_rate=3e-4,
+                                  weight_decay=1e-4, device=dev)
+    step_fn = fam.train_step(cfg, opt)
+    sync(dev)
+    start_info = {"wall_loop_start": wall0, "wall_ready": time.time(),
+                  "pid": os.getpid(),
+                  "cuda_visible_devices": os.environ.get(
+                      "CUDA_VISIBLE_DEVICES")}
+    batches = get_dataset_shard("train").iter_device_batches(
+        batch_size=config["batch"], device=config["device"])
+    reset_launch_counts()
+    step = 0
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        if batch is None:
+            break
+        tokens = batch["data"]
+        t0 = time.perf_counter()
+        loss = float(step_fn(params, {"tokens": tokens})["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step += 1
+        rec = {"step": step, "loss": loss, "step_ms": step_ms,
+               "wait_ms": wait_ms, "sha256": tokens_sha256(
+                   tokens.cpu().numpy())}
+        if step == 1:
+            rec.update(start_info)
+        session.report(rec)
+    session.report({"done": True, "launches": launch_counts(),
+                    "h2d_bytes": batches.bytes_copied,
+                    "copy_ms": batches.copy_ms(),
+                    "submit_ms": batches.submit_ms,
+                    "pinned_allocs": batches.pinned_allocs,
+                    "batches": batches.batches})
+
+
+def in_process_data_losses(dev, cfg, host_batches):
+    """The same init's losses on ``host_batches`` in this process."""
+    import torch
+    fam = family(cfg)
+    params, opt = fam.train_state(SEED, cfg, learning_rate=3e-4,
+                                  weight_decay=1e-4, device=dev)
+    step_fn = fam.train_step(cfg, opt)
+    losses = [float(step_fn(params, {"tokens": torch.tensor(b, device=dev)})
+                    ["loss"]) for b in host_batches]
+    del params, opt
+    empty_cache(dev)
+    return losses
+
+
+def runtime_data(dev, cfg, train_out=None) -> dict:
+    """Train from a shuffled Dataset on the runtime phase's cluster (see
+    the module docstring).  Returns the step's numbers; the worker's flash
+    launches under ``launches``."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer
+    on_card = dev.type == "cuda"
+    L = cfg.num_layers if on_card else 0
+    per_step = [2 * L, L, L, 0, 0, 0]
+    B, S = RUNTIME_TRAIN_BATCH if on_card else (2, cfg.max_seq_len)
+    rows = data_windows(cfg.vocab_size, B, S)
+    t0 = time.perf_counter()
+    ds = rd.from_numpy(rows, parallelism=RUNTIME_DATA_BLOCKS)
+    ds = ds.random_shuffle(seed=0).materialize()
+    shuffle_s = time.perf_counter() - t0
+    check(ds.num_blocks() == RUNTIME_DATA_BLOCKS,
+          f"the shuffle gave {ds.num_blocks()} blocks")
+    host = [b["data"] for b in ds.iter_batches(batch_size=B)]
+    check(len(host) == RUNTIME_DATA_BLOCKS and
+          sorted(tokens_sha256(r) for b in host for r in b) ==
+          sorted(map(tokens_sha256, rows)),
+          "the shuffled Dataset's batches are not a permutation of its rows")
+    free_card(on_card)
+    apps_before = card_apps() if on_card else {}
+    t0 = time.perf_counter()
+    wall0 = time.time()
+    result = TorchTrainer(
+        data_worker_loop,
+        train_loop_config={"fields": gpt_fields(cfg), "batch": B,
+                           "device": None if on_card else "cpu"},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+        datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    free_card(on_card, apps_before=apps_before)
+    hist = result.metrics_history
+    steps = [r for r in hist if "step" in r]
+    [done] = [r for r in hist if r.get("done")]
+    check([r["step"] for r in steps] == list(range(1, len(host) + 1)),
+          f"the worker took steps {[r['step'] for r in steps]}, not one "
+          f"for each of the {len(host)} batches")
+    check([r["sha256"] for r in steps] == [tokens_sha256(b) for b in host],
+          "the worker's batches differ from the driver's iter_batches")
+    if on_card:
+        check(steps[0]["cuda_visible_devices"] == "0",
+              f"the worker sees {steps[0]['cuda_visible_devices']!r}")
+    n = list(done["launches"])
+    check(n == [len(steps) * k for k in per_step],
+          f"the worker launched {n} in {len(steps)} steps, expected "
+          f"{per_step} a step")
+    pinned = 2 if on_card else 0
+    check(done["h2d_bytes"] == rows.nbytes and
+          done["pinned_allocs"] == pinned,
+          f"the ingest copied {done['h2d_bytes']} bytes of {rows.nbytes} "
+          f"through {done['pinned_allocs']} pinned buffers (expected "
+          f"{pinned})")
+    losses = [r["loss"] for r in steps]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    want = in_process_data_losses(dev, cfg, host)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    check(rel <= DATA_LOSS_RTOL, f"the trainer's losses {losses} differ "
+          f"from the in-process run's {want} by {rel} (rtol "
+          f"{DATA_LOSS_RTOL})")
+    waits = [r["wait_ms"] for r in steps]
+    copy_ms = done["copy_ms"]
+    timed = [r["step_ms"] for r in steps[1:]]
+    out = {"rows": list(rows.shape), "blocks": RUNTIME_DATA_BLOCKS,
+           "batch": [B, S], "steps": len(steps), "shuffle_s": shuffle_s,
+           "fit_s": fit_s,
+           "cold_start_s": steps[0]["wall_ready"] - wall0,
+           "ms_per_step": statistics.median(timed), "step_ms": timed,
+           "runtime_train_write_free_step_ms":
+           (train_out or {}).get("write_free_step_ms"),
+           "ingest_wait_ms_median": statistics.median(waits[1:]),
+           "ingest_wait_ms_max": max(waits[1:]),
+           "ingest_wait_ms_first": waits[0],
+           "ingest_submit_ms_median": statistics.median(done["submit_ms"]),
+           "h2d_bytes": done["h2d_bytes"], "copy_ms": copy_ms,
+           "h2d_GBps": (done["h2d_bytes"] / (sum(copy_ms) / 1e3) / 1e9
+                        if sum(copy_ms) else None),
+           "pinned_allocs": done["pinned_allocs"],
+           "losses": losses, "in_process_losses": want,
+           "loss_max_rel_diff": rel, "loss_rtol": DATA_LOSS_RTOL,
+           "bit_identical": losses == want, "launches": tuple(n)}
+    return out
+
 
 def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
                   train_ms=None):
@@ -2946,6 +3160,9 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
         t0 = time.perf_counter()
         train_out = runtime_train(dev, train_cfg, train_ms)
         train_out["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data_out = runtime_data(dev, train_cfg, train_out)
+        data_out["step_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = [e for e in os.listdir("/dev/shm")
@@ -2958,6 +3175,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
     emit("runtime_observe", card=smi, **observe)
     emit("runtime_serve", card=smi, **serve_out)
     emit("runtime_train", card=smi, **train_out)
+    emit("runtime_data", card=smi, **data_out)
     t0 = time.perf_counter()
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,
@@ -2966,6 +3184,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
         out["actor_launches"], death["actor_launches"]))
     out["serve_launches"] = serve_out["flash_launches"]
     out["train_launches"] = train_out["launches"]
+    out["data_launches"] = data_out["launches"]
     return out
 
 
@@ -3643,11 +3862,12 @@ def run() -> int:
          llama_infer[0] + llama_train["launches"][0] +
          moe_train["launches"][0] + pipe_launches[0] +
          runtime["actor_launches"][0] + runtime["serve_launches"][0] +
-         runtime["train_launches"][0],
+         runtime["train_launches"][0] + runtime["data_launches"][0],
          "launches_inference": infer_launches[0],
          "launches_runtime": runtime["actor_launches"][0],
          "launches_serve": runtime["serve_launches"][0],
          "launches_runtime_train": runtime["train_launches"][0],
+         "launches_runtime_data": runtime["data_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],
@@ -3668,9 +3888,10 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1] + llama_train["launches"][1] +
          moe_train["launches"][1] + pipe_launches[1] +
-         runtime["train_launches"][1],
+         runtime["train_launches"][1] + runtime["data_launches"][1],
          "launches_train": train["launches"][1],
          "launches_runtime_train": runtime["train_launches"][1],
+         "launches_runtime_data": runtime["data_launches"][1],
          "launches_llama_train": llama_train["launches"][1],
          "launches_moe_train": moe_train["launches"][1],
          "launches_llama_inference": llama_infer[1],
@@ -3686,9 +3907,10 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2] + llama_train["launches"][2] +
          moe_train["launches"][2] + pipe_launches[2] +
-         runtime["train_launches"][2],
+         runtime["train_launches"][2] + runtime["data_launches"][2],
          "launches_train": train["launches"][2],
          "launches_runtime_train": runtime["train_launches"][2],
+         "launches_runtime_data": runtime["data_launches"][2],
          "launches_llama_train": llama_train["launches"][2],
          "launches_moe_train": moe_train["launches"][2],
          "launches_llama_inference": llama_infer[2],

@@ -9,8 +9,9 @@ join one ``torch.distributed`` world (reference
 ``train/torch/config.py:113``), NCCL between cards and gloo on the CPU.
 ``TorchTrainer``/``TorchConfig`` take the place of the JAX package's
 ``JaxTrainer``/``JaxConfig``.  The trainers that read Data's datasets
-(GBDT, sklearn, transformers) and ``BatchPredictor`` come with the port of
-Data.
+(GBDT, sklearn, transformers) and ``BatchPredictor`` load when first named
+(``__getattr__``): importing the package imports neither torch nor numpy,
+since the raylet imports it for its train counters.
 """
 
 from ray_tpu_torch.train.backend import Backend, BackendConfig
@@ -20,12 +21,35 @@ from ray_tpu_torch.train.predictor import Predictor, TorchPredictor
 from ray_tpu_torch.train.torch.config import TorchConfig
 from ray_tpu_torch.train.torch.torch_trainer import TorchTrainer
 
+# The Data-bound names, each from its module (imported on first use).
+_LAZY = {
+    "BatchPredictor": "batch_predictor",
+    "TransformersTrainer": "transformers_trainer",
+    "load_model": "transformers_trainer",
+    "GBDTTrainer": "gbdt_trainer",
+    "SklearnTrainer": "gbdt_trainer",
+    "load_estimator": "gbdt_trainer",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+    return getattr(module, name)
+
+
 __all__ = [
     "Backend",
     "BackendConfig",
     "BaseTrainer",
     "TrainingFailedError",
+    "BatchPredictor",
     "DataParallelTrainer",
+    "GBDTTrainer", "TransformersTrainer", "load_model",
+    "SklearnTrainer",
+    "load_estimator",
     "TorchConfig",
     "TorchTrainer",
     "TorchPredictor",

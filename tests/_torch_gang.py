@@ -279,8 +279,17 @@ def _train(make_state, step_fn, cfg, axes, spec, tokens, steps,
     return [float(step(params, batch)["loss"]) for _ in range(steps)]
 
 
-def models_world8(rank, world, gpt_tree, llama_tree, batch8, batch8_7,
+# The parts of the sharded-models test, each its own 8-rank gang under its
+# own deadline: one gang for all of them outgrew its 120 s deadline under
+# load, and failed every case.
+MODEL_PARTS = ("gpt_decreases_1d", "gpt_decreases_3d", "llama_decreases",
+               "match", "flash", "ring")
+
+
+def models_world8(rank, world, part, gpt_tree, llama_tree, batch8, batch8_7,
                   batch4, ring_qkv):
+    """One ``part`` of ``MODEL_PARTS`` of tests/test_torch_sharded_models.py
+    on 8 ranks; rank 0 returns its results."""
     from ray_tpu_torch.autotune import dispatch
     from ray_tpu_torch.models import (GPTConfig, LlamaConfig,
                                       params_from_jax)
@@ -301,60 +310,101 @@ def models_world8(rank, world, gpt_tree, llama_tree, batch8, batch8_7,
     def sgd(leaves):
         return torch.optim.SGD(leaves, lr=1e-2)
 
-    out = {"gpt_decreases": {}, "llama_decreases": {}}
-    for name, spec in (("dp8", MeshSpec(dp=8)), ("fsdp8", MeshSpec(fsdp=8)),
-                       ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)),
-                       ("fsdp2_sp2_tp2", MeshSpec(fsdp=2, sp=2, tp=2))):
-        out["gpt_decreases"][name] = _train(
-            lambda: gpt_init(0, gcfg, device=CPU), gpt_step, gcfg,
-            gpt_param_axes, spec, batch8, 5, adam)
-    for name, spec in (("dp8", MeshSpec(dp=8)),
-                       ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2))):
-        out["llama_decreases"][name] = _train(
-            lambda: llama_init(0, lcfg, device=CPU), llama_step, lcfg,
-            llama_param_axes, spec, batch8, 5, adam)
+    out = {}
+    gpt_meshes = {
+        "gpt_decreases_1d": (("dp8", MeshSpec(dp=8)),
+                             ("fsdp8", MeshSpec(fsdp=8))),
+        "gpt_decreases_3d": (("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)),
+                             ("fsdp2_sp2_tp2", MeshSpec(fsdp=2, sp=2, tp=2)))}
+    if part in gpt_meshes:
+        out["gpt_decreases"] = {
+            name: _train(lambda: gpt_init(0, gcfg, device=CPU), gpt_step,
+                         gcfg, gpt_param_axes, spec, batch8, 5, adam)
+            for name, spec in gpt_meshes[part]}
+    elif part == "llama_decreases":
+        out["llama_decreases"] = {
+            name: _train(lambda: llama_init(0, lcfg, device=CPU), llama_step,
+                         lcfg, llama_param_axes, spec, batch8, 5, adam)
+            for name, spec in (
+                ("dp8", MeshSpec(dp=8)),
+                ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)))}
+    elif part == "match":
+        # Same weights (the JAX init), same batch, two SGD steps: sharded
+        # against one device.
+        for fam, cfg, tree, axes, step in (
+                ("gpt", gcfg, gpt_tree, gpt_param_axes, gpt_step),
+                ("llama", lcfg, llama_tree, llama_param_axes, llama_step)):
+            out[f"{fam}_match"] = {
+                name: _train(lambda: params_from_jax(tree, cfg, device=CPU),
+                             step, cfg, axes, spec, batch8_7, 2, sgd)[-1]
+                for name, spec in (("single", None),
+                                   ("dp8", MeshSpec(dp=8)),
+                                   ("tp2_fsdp4", MeshSpec(tp=2, fsdp=4)))}
+    elif part == "flash":
+        # The flash op on a mesh, under remat "dots" and the blocked head.
+        fcfg = GPTConfig(num_heads=2, embed_dim=16, attention="flash",
+                         remat=True, remat_policy="dots", ce_block=8, **tiny)
+        out["flash_match"] = {
+            name: _train(lambda: params_from_jax(gpt_tree, fcfg, device=CPU),
+                         gpt_step, fcfg, gpt_param_axes, spec, batch8_7, 2,
+                         sgd)[-1]
+            for name, spec in (("single", None),
+                               ("dp2_fsdp2_tp2",
+                                MeshSpec(dp=2, fsdp=2, tp=2)))}
+    elif part == "ring":
+        rcfg = GPTConfig(num_heads=2, embed_dim=16, attention="ring", **tiny)
+        out["ring_trains"] = _train(
+            lambda: gpt_init(0, rcfg, device=CPU), gpt_step, rcfg,
+            gpt_param_axes, MeshSpec(fsdp=2, sp=2, tp=2), batch4, 4, adam)
 
-    # Same weights (the JAX init), same batch, two SGD steps: sharded
-    # against one device.
-    for fam, cfg, tree, axes, step in (
-            ("gpt", gcfg, gpt_tree, gpt_param_axes, gpt_step),
-            ("llama", lcfg, llama_tree, llama_param_axes, llama_step)):
-        out[f"{fam}_match"] = {
-            name: _train(lambda: params_from_jax(tree, cfg, device=CPU),
-                         step, cfg, axes, spec, batch8_7, 2, sgd)[-1]
-            for name, spec in (("single", None), ("dp8", MeshSpec(dp=8)),
-                               ("tp2_fsdp4", MeshSpec(tp=2, fsdp=4)))}
-
-    # The flash op on a mesh, under remat "dots" and the blocked head.
-    fcfg = GPTConfig(num_heads=2, embed_dim=16, attention="flash",
-                     remat=True, remat_policy="dots", ce_block=8, **tiny)
-    out["flash_match"] = {
-        name: _train(lambda: params_from_jax(gpt_tree, fcfg, device=CPU),
-                     gpt_step, fcfg, gpt_param_axes, spec, batch8_7, 2,
-                     sgd)[-1]
-        for name, spec in (("single", None),
-                           ("dp2_fsdp2_tp2", MeshSpec(dp=2, fsdp=2, tp=2)))}
-
-    rcfg = GPTConfig(num_heads=2, embed_dim=16, attention="ring", **tiny)
-    out["ring_trains"] = _train(
-        lambda: gpt_init(0, rcfg, device=CPU), gpt_step, rcfg,
-        gpt_param_axes, MeshSpec(fsdp=2, sp=2, tp=2), batch4, 4, adam)
-
-    # The dispatcher's ring variant (mirrors tests/test_autotune.py:272).
-    mesh = MeshSpec(dp=2, sp=4).build(CPU)
-    q, k, v = (torch.from_numpy(a) for a in ring_qkv)
-    out["dispatch_ring"] = _np(dispatch.attention(q, k, v, causal=True,
-                                                  variant="ring", mesh=mesh))
-    kd = {"B": 2, "S": 32, "N": 2, "H": 8, "dtype": "float32",
-          "causal": True}
-    out["ring_applicable"] = dispatch.applicable_variants(
-        kd, torch.device(CPU), mesh)
-    os.environ["RT_AUTOTUNE_CACHE"] = os.path.join(
-        tempfile.mkdtemp(prefix="rt_gang_cache_"), "autotune.jsonl")
-    rec = dispatch.tune_attention(2, 32, 2, 8, "float32", device=CPU,
-                                  mesh=mesh, variants=("ring", "dense"))
-    out["ring_tuned"] = sorted(rec["meta"]["timings"])
+        # The dispatcher's ring variant (mirrors tests/test_autotune.py:272).
+        mesh = MeshSpec(dp=2, sp=4).build(CPU)
+        q, k, v = (torch.from_numpy(a) for a in ring_qkv)
+        out["dispatch_ring"] = _np(dispatch.attention(
+            q, k, v, causal=True, variant="ring", mesh=mesh))
+        kd = {"B": 2, "S": 32, "N": 2, "H": 8, "dtype": "float32",
+              "causal": True}
+        out["ring_applicable"] = dispatch.applicable_variants(
+            kd, torch.device(CPU), mesh)
+        os.environ["RT_AUTOTUNE_CACHE"] = os.path.join(
+            tempfile.mkdtemp(prefix="rt_gang_cache_"), "autotune.jsonl")
+        rec = dispatch.tune_attention(2, 32, 2, 8, "float32", device=CPU,
+                                      mesh=mesh, variants=("ring", "dense"))
+        out["ring_tuned"] = sorted(rec["meta"]["timings"])
+    else:
+        raise ValueError(f"no part {part!r} (have {MODEL_PARTS})")
     return out if rank == 0 else None
+
+
+# ------------------------------------------------------------------ data
+
+def data_sharded_ingest(rank, world, rows, specs):
+    """``Dataset.iter_device_batches(sharding=(mesh, spec))`` on a CPU
+    mesh dp=2 x tp=2 in local mode: for each spec, each batch's type,
+    placements, local shard and full tensor, as rank 0 sees them (every
+    rank takes part in ``full_tensor``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    rt.init(local_mode=True)
+    try:
+        mesh = make_mesh({"dp": 2, "tp": 2}, CPU)
+        ds = rd.from_numpy(rows, parallelism=4)
+        out = {}
+        for name, spec in specs.items():
+            got = []
+            for b in ds.iter_device_batches(batch_size=8,
+                                            sharding=(mesh, P(*spec))):
+                x = b["data"]
+                got.append({"type": type(x).__name__,
+                            "placements": [(type(p).__name__,
+                                            getattr(p, "dim", None))
+                                           for p in x.placements],
+                            "local": x.to_local().numpy().copy(),
+                            "full": x.full_tensor().numpy().copy()})
+            out[name] = got
+        return out
+    finally:
+        rt.shutdown()
 
 
 def fail_on_rank_1(rank, world):

@@ -118,3 +118,31 @@ def loop_gpt_train(config):
         m = step(params, {"tokens": torch.from_numpy(np.asarray(toks))})
         session.report({"loss": float(m["loss"]),
                         "grad_norm": float(m["grad_norm"])})
+
+
+def loop_gpt_train_from_dataset(config):
+    """``loop_gpt_train`` fed by the trainer's dataset shard through
+    ``iter_device_batches(device="cpu")``; each report also carries the
+    step's tokens."""
+    import torch
+
+    from ray_tpu_torch.models import (GPTConfig, make_train_state,
+                                      make_train_step, params_from_jax)
+    from ray_tpu_torch.models.gpt import _leaves
+    from ray_tpu_torch.train.data_parallel_trainer import get_dataset_shard
+
+    cfg = GPTConfig(dtype=torch.float32, **config["cfg"])
+    params, opt = make_train_state(0, cfg, learning_rate=3e-4,
+                                   weight_decay=1e-4, device="cpu")
+    start = params_from_jax(config["params"], cfg, device="cpu")
+    with torch.no_grad():
+        for leaf, value in zip(_leaves(params), _leaves(start)):
+            leaf.copy_(value)
+    step = make_train_step(cfg, opt)
+    shard = get_dataset_shard("train")
+    for batch in shard.iter_device_batches(batch_size=config["batch_size"],
+                                           device="cpu"):
+        m = step(params, {"tokens": batch["data"]})
+        session.report({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "tokens": batch["data"].numpy().tolist()})

@@ -252,6 +252,55 @@ rt.shutdown()
     assert "torch" not in _imports(template)
 
 
+def test_no_process_of_a_data_and_transformers_cluster_imports_jax(
+        tmp_path):
+    """The purity rule on a cluster that runs Data's push-based shuffle
+    (merger actors, partition tasks) and a TransformersTrainer worker:
+    where TensorFlow and Flax are installed, transformers imports them,
+    and JAX with them, but for the switches the trainer sets in its
+    worker."""
+    code = """
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch import data as rd
+from ray_tpu_torch.air import ScalingConfig
+from ray_tpu_torch.train import TransformersTrainer
+rt.init(num_cpus=4)
+rows = np.random.default_rng(0).integers(0, 64, (32, 9))
+ds = rd.from_numpy(rows, parallelism=8).random_shuffle(seed=0,
+                                                       push_based=True)
+assert sorted(map(int, np.concatenate(
+    [b["data"][:, 0] for b in ds.iter_batches(batch_size=8)]))) == sorted(
+        rows[:, 0].tolist())
+
+def model_init():
+    from transformers import GPT2Config, GPT2LMHeadModel
+    return GPT2LMHeadModel(GPT2Config(n_layer=1, n_head=2, n_embd=16,
+                                      n_positions=16, vocab_size=64))
+
+tokens = ds.map_batches(lambda b: {"tokens": b["data"]})
+result = TransformersTrainer(
+    model_init_fn=model_init,
+    train_loop_config={"epochs": 1, "batch_size": 8, "device": "cpu"},
+    scaling_config=ScalingConfig(num_workers=1),
+    datasets={"train": tokens}).fit()
+print("RESULT", result.metrics["epoch"])
+rt.shutdown()
+"""
+    proc = _driver(code, {"PYTHONPROFILEIMPORTTIME": "1",
+                          "RT_LOG_DIR": str(tmp_path)}, timeout=300)
+    assert "RESULT 0" in proc.stdout
+    logs = {p.name: p.read_text() for p in tmp_path.iterdir()
+            if p.suffix in (".err", ".log")}
+    workers = [v for k, v in logs.items() if k.startswith("worker-")]
+    assert any("transformers" in _imports(t) for t in workers)
+    for name, text in [("driver+daemon", proc.stderr)] + sorted(
+            logs.items()):
+        mods = _imports(text)
+        bad = [m for m in mods if _FORBIDDEN_IMPORT.search("| " + m)]
+        assert not bad, (name, bad)
+
+
 def test_detection_order(monkeypatch, tmp_path):
     from ray_tpu_torch._private import gpu_topology as topo
     monkeypatch.setattr(topo, "_INFO_GLOB", str(tmp_path / "*" / "info"))

@@ -231,7 +231,9 @@ def test_gang_fails_fast_and_keeps_its_deadline():
         t0 = time.monotonic()
         with pytest.raises(RuntimeError, match="exited with code 1"):
             gang.run_gang(gang.fail_on_rank_1, 2, timeout_s=DEADLINE_S)
+        # 30 s: rank 0 must spawn, import torch and pass the barrier
+        # inside it (~4 s alone; over 10 s beside a loaded suite)
         with pytest.raises(TimeoutError,
                            match=r"ranks \[1\] still running"):
-            gang.run_gang(gang.hang, 2, timeout_s=10)
+            gang.run_gang(gang.hang, 2, timeout_s=30)
         assert time.monotonic() - t0 < DEADLINE_S

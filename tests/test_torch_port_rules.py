@@ -61,7 +61,11 @@ def _port_files():
             "_torch_train_loops", "test_torch_air", "test_torch_train",
             "test_torch_train_resilience", "test_torch_train_chaos",
             "test_torch_train_torch_trainer", "test_torch_train_gpu",
-            "test_torch_collective", "test_torch_orbax_checkpoint")]
+            "test_torch_collective", "test_torch_orbax_checkpoint",
+            "test_torch_data", "test_torch_data_arrow", "test_torch_data_lazy",
+            "test_torch_data_ingest", "test_torch_data_gpu",
+            "test_torch_batch_predictor", "test_torch_gbdt_sklearn_trainer",
+            "test_torch_transformers_trainer", "test_torch_util_pool_queue")]
     assert len(files) > 10
     return files
 
@@ -127,7 +131,7 @@ def test_string_check_sees_a_launch_string():
 # the controller, the ingress, train workers), so they keep the core's
 # rules.
 LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve", "air",
-          "train")
+          "train", "data")
 
 
 def test_port_runtime_is_rtlint_clean():

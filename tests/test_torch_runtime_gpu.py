@@ -13,7 +13,8 @@ with num_gpus=1 streams over HTTP what an in-process engine gives, and a
 serve-batched flash forward matches the in-process one (the
 runtime_serve step, at a short engine).  Train on the card: a num_gpus=1
 TorchTrainer worker SIGKILLed mid-run resumes bit-identically (the
-runtime_train step).  The tests need a CUDA card and skip
+runtime_train step), and one trains from a shuffled Dataset through
+iter_device_batches (the runtime_data step).  The tests need a CUDA card and skip
 without one.  It imports nothing of JAX, so on the card it runs without
 the repo's conftest:
 
@@ -147,3 +148,20 @@ def test_train_and_resume_in_a_gpu_trainer(card_cluster):
     assert out["recovery"]["incarnations"] == 2
     # 13 steps ran in the recovery's two workers and 12 in the control's.
     assert out["launches"] == (4 * 25, 2 * 25, 2 * 25, 0, 0, 0)
+
+
+@pytest.mark.gpu
+def test_train_from_a_dataset_in_a_gpu_trainer(card_cluster):
+    """The runtime_data step at 2 layers: a num_gpus=1 TorchTrainer worker
+    trains one step per batch of its shuffled Dataset shard through
+    iter_device_batches; its batches are the driver's, its losses the
+    in-process run's, its launches exactly 4/2/2 a step."""
+    chip_smoke, _ = card_cluster
+    cfg = dataclasses.replace(
+        GPTConfig.gpt2_small(), num_layers=2, dtype=torch.bfloat16,
+        attention="flash", remat=True, remat_policy="dots", ce_block=256)
+    out = chip_smoke.runtime_data(torch.device("cuda", 0), cfg)
+    assert out["steps"] == 16
+    assert out["loss_max_rel_diff"] <= chip_smoke.DATA_LOSS_RTOL
+    assert out["launches"] == (4 * 16, 2 * 16, 2 * 16, 0, 0, 0)
+    assert out["pinned_allocs"] == 2

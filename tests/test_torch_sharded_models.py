@@ -14,9 +14,11 @@ multislice and pipeline; only rl is not run), and the autotune
 dispatcher's ring variant against the dense reference at atol 2e-5
 (mirrors tests/test_autotune.py:272).
 
-The torch side runs in one gloo gang of 8 ranks (120 s deadline; rank
-function ``models_world8`` in ``_torch_gang.py``); the dryrun runs its own
-four gangs under its own deadline.
+The torch side runs in six gloo gangs of 8 ranks, one for each part of
+``_torch_gang.MODEL_PARTS`` (GPT's two 1-d meshes and its two 3-d ones,
+LLaMA's two, the single-device matches, the flash op, ring attention),
+each under its own 120 s deadline (rank function ``models_world8``); the
+dryrun runs its own four gangs under its own deadline.
 """
 
 import math
@@ -63,12 +65,24 @@ def jax_params():
             jllama.llama_init(jax.random.PRNGKey(0), JLLAMA))
 
 
-@pytest.fixture(scope="module")
-def world8(jax_params):
-    gp, lp = jax_params
-    return gang.run(gang.models_world8, 8,
-                    (_tree(gp), _tree(lp), BATCH8, BATCH8_7, BATCH4,
-                     RING_QKV), timeout_s=120)[0]
+def _world8(part):
+    """A module fixture: ``part``'s results from its own gang (pytest keeps
+    a gang's failure for the part's other cases, so it runs once)."""
+    @pytest.fixture(scope="module")
+    def results(jax_params):
+        gp, lp = jax_params
+        return gang.run(gang.models_world8, 8,
+                        (part, _tree(gp), _tree(lp), BATCH8, BATCH8_7,
+                         BATCH4, RING_QKV), timeout_s=120)[0]
+    return results
+
+
+gpt8_1d = _world8("gpt_decreases_1d")
+gpt8_3d = _world8("gpt_decreases_3d")
+llama8 = _world8("llama_decreases")
+match8 = _world8("match")
+flash8 = _world8("flash")
+ring8 = _world8("ring")
 
 
 def _structure(tree):
@@ -96,8 +110,9 @@ def test_gpt_param_axes_tree_matches(experts):
 
 @pytest.mark.parametrize("spec", ["dp8", "fsdp8", "dp2_fsdp2_tp2",
                                   "fsdp2_sp2_tp2"])
-def test_gpt_train_step_loss_decreases(world8, spec):
-    losses = world8["gpt_decreases"][spec]
+def test_gpt_train_step_loss_decreases(request, spec):
+    part = "gpt8_1d" if spec in ("dp8", "fsdp8") else "gpt8_3d"
+    losses = request.getfixturevalue(part)["gpt_decreases"][spec]
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
 
 
@@ -111,49 +126,50 @@ def _jax_two_sgd_steps(make_step, cfg, params):
     return float(m["loss"])
 
 
-def test_gpt_sharded_matches_single_device(world8, jax_params):
+def test_gpt_sharded_matches_single_device(match8, jax_params):
     """Same weights, same batch: dp=8 and tp=2 x fsdp=4 == one device."""
-    got = world8["gpt_match"]
+    got = match8["gpt_match"]
     assert abs(got["single"] - got["dp8"]) < 1e-4
     assert abs(got["single"] - got["tp2_fsdp4"]) < 1e-4
     want = _jax_two_sgd_steps(jgpt.make_train_step, JGPT, jax_params[0])
     assert abs(got["single"] - want) < 1e-4
 
 
-def test_gpt_ring_attention_mode_trains(world8):
-    losses = world8["ring_trains"]
+def test_gpt_ring_attention_mode_trains(ring8):
+    losses = ring8["ring_trains"]
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("spec", ["dp8", "dp2_fsdp2_tp2"])
-def test_llama_train_step_loss_decreases(world8, spec):
-    losses = world8["llama_decreases"][spec]
+def test_llama_train_step_loss_decreases(llama8, spec):
+    losses = llama8["llama_decreases"][spec]
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0]
 
 
-def test_llama_sharded_matches_single_device(world8, jax_params):
-    got = world8["llama_match"]
+def test_llama_sharded_matches_single_device(match8, jax_params):
+    got = match8["llama_match"]
     assert abs(got["single"] - got["dp8"]) < 1e-4
     assert abs(got["single"] - got["tp2_fsdp4"]) < 1e-4
     want = _jax_two_sgd_steps(jllama.make_train_step, JLLAMA, jax_params[1])
     assert abs(got["single"] - want) < 1e-4
 
 
-def test_flash_on_a_mesh_matches_single_device(world8):
+def test_flash_on_a_mesh_matches_single_device(flash8, match8):
     """The flash op runs per rank on its batch and heads (no DTensor rule
     needed), under remat "dots" and the blocked head."""
-    got = world8["flash_match"]
+    got = flash8["flash_match"]
     assert abs(got["single"] - got["dp2_fsdp2_tp2"]) < 1e-4
     # flash equals dense on one device, so this is the GPT match's loss
-    assert abs(got["single"] - world8["gpt_match"]["single"]) < 1e-4
+    assert abs(got["single"] - match8["gpt_match"]["single"]) < 1e-4
 
 
-def test_dispatched_ring_variant_matches_dense_reference(world8):
+def test_dispatched_ring_variant_matches_dense_reference(ring8):
     want = np.asarray(_dense_reference(*map(jnp.asarray, RING_QKV), True,
                                        None))
-    np.testing.assert_allclose(world8["dispatch_ring"], want, atol=2e-5)
-    assert world8["ring_applicable"][-1] == "ring"
-    assert world8["ring_tuned"] == ["dense", "ring"]
+    ring = ring8
+    np.testing.assert_allclose(ring["dispatch_ring"], want, atol=2e-5)
+    assert ring["ring_applicable"][-1] == "ring"
+    assert ring["ring_tuned"] == ["dense", "ring"]
 
 
 def test_dryrun_multichip_twin(capsys):

@@ -2,8 +2,9 @@
 weak 5.1).  Reference analog: util/tracing/tracing_helper.py:53.
 
 The port's runtime under ``test_tracing_usage.py``'s span, state and
-usage cases, one for one.  Its two library-usage cases, which tag usage by
-importing ``tune`` and ``data``, come with those modules;
+usage cases, one for one.  Of its two library-usage cases, the one that
+tags usage by importing ``data`` is here; the one that imports ``tune``
+comes with Tune;
 ``test_runtime_never_cold_inits_jax_backend`` becomes
 ``test_runtime_never_inits_cuda``, and ``test_backend_summary_never_inits``
 has no counterpart, since the port keeps no ``_private/jaxutil.py``.
@@ -124,6 +125,22 @@ def test_actor_call_spans_join_trace(trace_cluster):
     actor_spans = [s for s in spans if s.get("trace_id") == trace_id
                    and s["name"] == "actor:work"]
     assert actor_spans[0]["parent_id"] == root_id
+
+
+def test_usage_report_written_at_shutdown(tmp_path, monkeypatch):
+    import json
+    import subprocess
+    import sys
+    env = dict(__import__("os").environ)
+    env["RT_LOG_DIR"] = str(tmp_path)
+    code = (
+        "import ray_tpu_torch, ray_tpu_torch.data;"
+        "ray_tpu_torch.init(num_cpus=1);"
+        "ray_tpu_torch.shutdown()")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
+    rep = json.loads((tmp_path / "usage_report.json").read_text())
+    assert "data" in rep["libraries"]
 
 
 def test_runtime_never_inits_cuda(tmp_path):

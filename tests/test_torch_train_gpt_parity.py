@@ -8,8 +8,11 @@ reports each step's loss and grad norm through the session.  They are held
 to ``ray_tpu.models.gpt.make_train_step`` with ``optax.adamw(3e-4,
 b2=0.95)`` on the same batches in this process: loss rtol 1e-5, grad norm
 rtol 1e-4 (the tolerances of test_torch_gpt_train.py, f32 on both sides).
-The loop lives in ``_torch_train_loops.py``: this module imports JAX and
-the workers must not.
+The second case feeds the trainer from a shuffled Dataset through
+``iter_device_batches(device="cpu")``, against the JAX step fed by the JAX
+package's Dataset of the same rows and seed.  The loops live in
+``_torch_train_loops.py``: this module imports JAX and the workers must
+not.
 """
 
 import jax
@@ -47,6 +50,54 @@ def test_trainer_losses_match_jax_train_step(ray_start):  # noqa: F811
     step = jgpt.make_train_step(jcfg, tx, donate=False)
     p, state = jparams, tx.init(jparams)
     for toks, m in zip(batches, got):
+        p, state, jm = step(p, state, {"tokens": jnp.asarray(toks,
+                                                             jnp.int32)})
+        np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"], float(jm["grad_norm"]),
+                                   rtol=1e-4)
+
+
+def test_dataset_fed_trainer_matches_jax_train_step(ray_start):  # noqa: F811
+    """The same GPT and settings, fed by the trainer's dataset shard through
+    ``iter_device_batches(device="cpu")``: 12 seeded rows in 4 blocks,
+    ``random_shuffle(seed=0)``, batches of 4.  The JAX side's batches come
+    from the JAX package's Dataset of the same rows and seed, on a cluster
+    of the same size; both take the same tokens, and the losses and grad
+    norms agree within the tolerances above."""
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu_torch import data as rd
+
+    rows = np.random.default_rng(4).integers(
+        0, CFG["vocab_size"], (12, CFG["max_seq_len"] + 1), dtype=np.int64)
+    ray_tpu.init(num_cpus=16)
+    try:
+        want_batches = [b["data"] for b in jdata.from_numpy(
+            rows, parallelism=4).random_shuffle(seed=0).iter_batches(
+                batch_size=4)]
+    finally:
+        ray_tpu.shutdown()
+    assert len(want_batches) == 3
+
+    jcfg = jgpt.GPTConfig(dtype=jnp.float32, **CFG)
+    jparams = jgpt.gpt_init(jax.random.PRNGKey(0), jcfg)
+    result = TorchTrainer(
+        loops.loop_gpt_train_from_dataset,
+        train_loop_config={"cfg": CFG, "batch_size": 4,
+                           "params": jax.tree_util.tree_map(np.asarray,
+                                                            jparams)},
+        scaling_config=ScalingConfig(num_workers=1),
+        datasets={"train": rd.from_numpy(rows, parallelism=4)
+                  .random_shuffle(seed=0)},
+    ).fit()
+    got = result.metrics_history
+    assert len(got) == 3
+
+    tx = optax.adamw(3e-4, b2=0.95)
+    step = jgpt.make_train_step(jcfg, tx, donate=False)
+    p, state = jparams, tx.init(jparams)
+    for toks, m in zip(want_batches, got):
+        np.testing.assert_array_equal(np.asarray(m["tokens"]), toks)
         p, state, jm = step(p, state, {"tokens": jnp.asarray(toks,
                                                              jnp.int32)})
         np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
