@@ -253,6 +253,35 @@ Every phase prints one JSON line and any failure exits nonzero:
            with no checkpoint write in flight, the ingest wait per step,
            the host-to-device bytes and GB/s, the shuffle's seconds and
            the worker's cold start
+  runtime_tune  tune on the same cluster, after runtime_data: Tuner over
+           a TorchTrainer with one num_gpus=1 worker training GPT-2-small
+           at phase_train's settings (weights from seed 0, step k's
+           tokens from seed 1000 + k), lr grid_search over TUNE_LRS in
+           that order, ASHAScheduler(max_t=8, grace_period=2,
+           reduction_factor=2), max_concurrent_trials=1 (the one card);
+           the worker reports each step (one training_iteration) and
+           never "done", the step-8 report with the params' sha256 and a
+           host checkpoint of them; first the same steps in this process
+           at each rate and a fresh ASHAScheduler's decisions on those
+           losses in grid order; every trial's losses bit-identical to the
+           in-process run's, the runner's stop iterations the replay's (one
+           trial at least stopped before max_t), get_best_result() the
+           rate the in-process losses make best and its checkpoint, read
+           on the driver, hashing to the in-process params; each trial's
+           worker sees exactly the card, the runtime's actor table shows
+           at most one live actor holding the card at any sample (every
+           0.25 s; nvidia-smi lists the card's processes as one pid), and
+           after every trial's stop the card comes back (the GPU resource
+           and memory.used within CARD_MIB_SLACK of the sweep's start,
+           waited for inside the runner's stop); each trial's
+           flash launches exactly 24/12/12 a step (the kernels line's
+           launches_runtime_tune); per trial its cold start (trial start
+           to the worker ready to step), ms/step beside runtime_train's
+           write-free steps and the stop's seconds; between trials the gap
+           from the stop to the next worker's loop start, split into the
+           stop, the card's return and the next trial's start; Tune's
+           saves of the best trial's checkpoint (bytes, seconds) and the
+           driver's read and hash of it
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -3121,6 +3150,347 @@ def runtime_data(dev, cfg, train_out=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------- runtime_tune
+
+# The sweep: three learning rates in this grid order, one trial at a time
+# (the node's one card), ASHA with rungs at steps 2 and 4 and max_t 8; one
+# step is one training_iteration.  The order puts first the rate whose
+# loss is lowest at step 2 (3e-4 for GPT-2-small in process on an H100;
+# at 1e-3 the loss rises from step 2 on), so that ASHA stops the others
+# at the first rung.
+TUNE_LRS = (3e-4, 1e-3, 3e-5)
+TUNE_MAX_T = 8
+TUNE_GRACE = 2
+TUNE_RF = 2
+
+
+def tune_worker_loop(config):
+    """The runtime_tune step's train_loop_per_worker: ``train_worker_loop``'s
+    model and batches at ``config["lr"]``, one report a step.  It never
+    reports ``done`` (the runner would read that as the trial's end); the
+    report of step ``config["steps"]`` (ASHA's max_t, where it stops the
+    trial) carries the params' sha256 and a checkpoint of them, copied to
+    the host (the trial actor holds no card)."""
+    import os
+    wall0 = time.time()
+    import torch
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.train._internal import checkpoint_store as cs
+    dev = resolve_device(config["device"])
+    fields = config["fields"]
+    cfg = GPTConfig(**{**fields, "dtype": getattr(torch, fields["dtype"])})
+    fam = family(cfg)
+    params, opt = fam.train_state(SEED, cfg, learning_rate=config["lr"],
+                                  weight_decay=1e-4, device=dev)
+    step_fn = fam.train_step(cfg, opt)
+    sync(dev)
+    start_info = {"wall_loop_start": wall0, "wall_ready": time.time(),
+                  "pid": os.getpid(),
+                  "cuda_visible_devices": os.environ.get(
+                      "CUDA_VISIBLE_DEVICES")}
+    B, S = config["batch"]
+    reset_launch_counts()
+    for step in range(config["steps"]):
+        tokens = train_tokens(cfg.vocab_size, step, B, S).to(dev)
+        t0 = time.perf_counter()
+        loss = float(step_fn(params, {"tokens": tokens})["loss"])
+        rec = {"step": step + 1, "loss": loss,
+               "step_ms": (time.perf_counter() - t0) * 1e3,
+               "wall": time.time(), "launches": launch_counts()}
+        if step == 0:
+            rec.update(start_info)
+        ckpt = None
+        if step + 1 == config["steps"]:
+            t0 = time.perf_counter()
+            host = cs.snapshot_to_host({"params": params})
+            t1 = time.perf_counter()
+            rec["params_sha256"] = params_sha256(host["params"])
+            rec.update(snapshot_s=t1 - t0,
+                       sha256_s=time.perf_counter() - t1,
+                       wall_report=time.time())
+            ckpt = Checkpoint.from_pytree(host)
+        session.report(rec, checkpoint=ckpt)
+
+
+def in_process_tune(dev, cfg, lr, B, S) -> dict:
+    """``tune_worker_loop``'s steps at ``lr`` in this process: each step's
+    loss and the params' sha256 after TUNE_MAX_T steps."""
+    fam = family(cfg)
+    params, opt = fam.train_state(SEED, cfg, learning_rate=lr,
+                                  weight_decay=1e-4, device=dev)
+    step_fn = fam.train_step(cfg, opt)
+    losses = [float(step_fn(params, {"tokens": train_tokens(
+        cfg.vocab_size, step, B, S).to(dev)})["loss"])
+        for step in range(TUNE_MAX_T)]
+    out = {"losses": losses, "params_sha256": params_sha256(params)}
+    del params, opt
+    empty_cache(dev)
+    return out
+
+
+def asha_replay(losses_by_lr, lrs=TUNE_LRS) -> dict:
+    """The iteration at which a fresh ASHAScheduler (the sweep's settings)
+    stops each trial, fed each rate's losses in grid order, one trial
+    after the other as the runner runs them."""
+    import types
+
+    from ray_tpu_torch.tune.schedulers import ASHAScheduler
+    sched = ASHAScheduler(max_t=TUNE_MAX_T, grace_period=TUNE_GRACE,
+                          reduction_factor=TUNE_RF)
+    sched.set_search_properties("loss", "min")
+    stops = {}
+    for i, lr in enumerate(lrs):
+        trial = types.SimpleNamespace(trial_id=f"{i:05d}", scratch={})
+        for it, loss in enumerate(losses_by_lr[lr], start=1):
+            if sched.on_trial_result(None, trial, {
+                    "loss": loss, "training_iteration": it}) == "STOP":
+                stops[lr] = it
+                break
+    return stops
+
+
+# A stopped trial's card memory is back when the card holds at most this
+# much more than before the sweep (a worker's context alone is ~500 MiB).
+CARD_MIB_SLACK = 256
+
+
+@contextlib.contextmanager
+def runner_probes(on_card, mib_before):
+    """Time the trial runner's trial starts, checkpoint saves and stops
+    in this process, and, after each stop, wait for the card to come back:
+    the GPU resource (free_card) and the card's memory.used within
+    CARD_MIB_SLACK of ``mib_before``.  A thread samples the runtime's
+    actor table every 0.25 s meanwhile, for the most live actors holding
+    the card at once (nvidia-smi there lists every process on the card
+    as pid 1, so it cannot tell them apart).  Yields the record."""
+    import threading
+
+    from ray_tpu_torch.tune.execution.trial_runner import TrialRunner
+    from ray_tpu_torch.util import state
+    rec = {"starts": {}, "stops": {}, "saves": [], "gpu_actors_max": 0}
+    orig = (TrialRunner._start_trial, TrialRunner._checkpoint_trial,
+            TrialRunner._stop_actor)
+
+    def start_trial(runner, trial, restore_from=None):
+        rec["starts"][trial.trial_id] = time.time()
+        orig[0](runner, trial, restore_from)
+
+    def checkpoint_trial(runner, trial):
+        wall = time.time()
+        t0 = time.perf_counter()
+        orig[1](runner, trial)
+        secs = time.perf_counter() - t0
+        state_ = (trial.checkpoint.to_dict().get("trainable_state") or {}
+                  if trial.checkpoint is not None else {})
+        fn_ckpt = state_.get("fn_checkpoint") or {}
+        tree = fn_ckpt.get("__pytree__") or {}
+        rec["saves"].append({
+            "trial": trial.trial_id, "s": secs, "wall": wall,
+            "bytes": sum(leaf.numel() * leaf.element_size()
+                         for _, leaf in named_leaves(tree))})
+
+    def stop_actor(runner, trial):
+        t0 = time.time()
+        orig[2](runner, trial)
+        t1 = time.time()
+        free_card(on_card)
+        mib = None
+        if on_card:
+            deadline = time.monotonic() + 60
+            while (mib := card_used_mib()) > mib_before + CARD_MIB_SLACK:
+                check(time.monotonic() < deadline, f"the card holds {mib} "
+                      f"MiB after trial {trial.trial_id}'s stop, "
+                      f"{mib_before} before the sweep")
+                time.sleep(0.2)
+        rec["stops"][trial.trial_id] = {"start": t0, "end": t1,
+                                        "card_free": time.time(),
+                                        "card_mib": mib}
+
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.25):
+            holders = [a for a in state.list_actors()
+                       if a["state"] == "ALIVE"
+                       and (a.get("resources") or {}).get("GPU")]
+            rec["gpu_actors_max"] = max(rec["gpu_actors_max"],
+                                        len(holders))
+
+    TrialRunner._start_trial = start_trial
+    TrialRunner._checkpoint_trial = checkpoint_trial
+    TrialRunner._stop_actor = stop_actor
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield rec
+    finally:
+        (TrialRunner._start_trial, TrialRunner._checkpoint_trial,
+         TrialRunner._stop_actor) = orig
+        done.set()
+        thread.join(timeout=30)
+
+
+def runtime_tune(dev, cfg, train_out=None, lrs=TUNE_LRS) -> dict:
+    """Tune a TorchTrainer on the runtime phase's cluster (see the module
+    docstring), over the rates ``lrs`` in grid order.  Returns the step's
+    numbers; the trials' flash launches (each trial's count at its last
+    processed report) under ``launches``."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import Checkpoint, ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.tune import TuneConfig, Tuner
+    from ray_tpu_torch.tune.schedulers import ASHAScheduler
+    on_card = dev.type == "cuda"
+    L = cfg.num_layers if on_card else 0
+    per_step = [2 * L, L, L, 0, 0, 0]
+    B, S = RUNTIME_TRAIN_BATCH if on_card else (2, cfg.max_seq_len)
+    t0 = time.perf_counter()
+    want = {lr: in_process_tune(dev, cfg, lr, B, S) for lr in lrs}
+    in_process_s = time.perf_counter() - t0
+    expected = asha_replay({lr: w["losses"] for lr, w in want.items()},
+                           lrs)
+    check(sorted(expected) == sorted(lrs), f"the replay {expected}")
+    check(any(it < TUNE_MAX_T for it in expected.values()),
+          f"ASHA stops no trial before max_t on the in-process losses "
+          f"{want}; reorder TUNE_LRS")
+    # The best result: the lowest last loss among the trials.
+    best_lr = min(lrs, key=lambda lr: want[lr]["losses"][
+        expected[lr] - 1])
+    check(expected[best_lr] == TUNE_MAX_T, f"the best rate {best_lr} "
+          f"stops at {expected[best_lr]}, before its checkpoint")
+    free_card(on_card)
+    mib_before = card_used_mib() if on_card else 0
+    trainer = TorchTrainer(
+        tune_worker_loop,
+        train_loop_config={"fields": gpt_fields(cfg), "batch": [B, S],
+                           "steps": TUNE_MAX_T,
+                           "device": None if on_card else "cpu"},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card))
+    t0 = time.perf_counter()
+    with runner_probes(on_card, mib_before) as probes:
+        grid = Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(lrs))}},
+            tune_config=TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=1,
+                scheduler=ASHAScheduler(max_t=TUNE_MAX_T,
+                                        grace_period=TUNE_GRACE,
+                                        reduction_factor=TUNE_RF))).fit()
+    fit_s = time.perf_counter() - t0
+    check(not grid.errors, f"trials failed: {grid.errors}")
+    check(len(grid) == len(lrs), f"{len(grid)} trials")
+    free_card(on_card)
+    trials, total = [], [0] * 6
+    for i, (lr, r) in enumerate(zip(lrs, grid)):
+        tid = f"{i:05d}"
+        check(r.metrics["config"]["train_loop_config"]["lr"] == lr,
+              f"trial {tid} ran {r.metrics['config']}, not lr {lr}")
+        hist = r.metrics_history
+        losses = [m["loss"] for m in hist]
+        check([m["step"] for m in hist] == list(range(1, len(hist) + 1)),
+              f"trial {tid} reported steps {[m['step'] for m in hist]}")
+        check(losses == want[lr]["losses"][:len(losses)],
+              f"trial {tid} (lr {lr}) losses {losses} differ from the "
+              f"in-process run's {want[lr]['losses']}")
+        check(len(hist) == expected[lr], f"the runner stopped trial {tid} "
+              f"(lr {lr}) at {len(hist)}; the replay at {expected[lr]}")
+        n = list(hist[-1]["launches"])
+        check(n == [len(hist) * k for k in per_step],
+              f"trial {tid} launched {n} in {len(hist)} steps, expected "
+              f"{per_step} a step")
+        total = [a + b for a, b in zip(total, n)]
+        first = hist[0]
+        if on_card:
+            check(first["cuda_visible_devices"] == "0",
+                  f"trial {tid}'s worker sees "
+                  f"{first['cuda_visible_devices']!r}")
+        start = probes["starts"][tid]
+        stop = probes["stops"][tid]
+        trials.append({
+            "trial": tid, "lr": lr, "iterations": len(hist),
+            "losses": losses, "cold_start_s": first["wall_ready"] - start,
+            "to_loop_start_s": first["wall_loop_start"] - start,
+            "ms_per_step": statistics.median(
+                [m["step_ms"] for m in hist[1:]]) if len(hist) > 1
+            else None,
+            "step_ms": [m["step_ms"] for m in hist],
+            "stop_s": stop["end"] - stop["start"],
+            "stop_to_card_free_s": stop["card_free"] - stop["start"],
+            "last_step_to_stop_s": stop["start"] - hist[-1]["wall"]})
+        last = hist[-1]
+        if "wall_report" in last:
+            # The last step's tail: the host snapshot and the hash on the
+            # worker, the report's trip through the trial actor to the
+            # runner, the runner's saves, then the stop.
+            saves = [x for x in probes["saves"] if x["trial"] == tid]
+            trials[-1].update(
+                snapshot_s=last["snapshot_s"], sha256_s=last["sha256_s"],
+                report_to_runner_s=saves[0]["wall"] - last["wall_report"],
+                saves_s=[x["s"] for x in saves])
+    check(probes["gpu_actors_max"] <= (1 if on_card else 0),
+          f"{probes['gpu_actors_max']} live actors held the card at once")
+    gaps = []
+    for prev, nxt in zip(trials, trials[1:]):
+        stop = probes["stops"][prev["trial"]]
+        start = probes["starts"][nxt["trial"]]
+        first = grid[int(nxt["trial"])].metrics_history[0]
+        gaps.append({"after": prev["trial"],
+                     "stop_to_loop_start_s": first["wall_loop_start"] -
+                     stop["start"],
+                     "stop_s": stop["end"] - stop["start"],
+                     "card_free_s": stop["card_free"] - stop["start"],
+                     "card_free_to_trial_start_s": start - stop["card_free"],
+                     "trial_start_to_loop_start_s":
+                     first["wall_loop_start"] - start})
+    best = grid.get_best_result()
+    best_cfg_lr = best.metrics["config"]["train_loop_config"]["lr"]
+    check(best_cfg_lr == best_lr, f"the best result is lr {best_cfg_lr}, "
+          f"the in-process losses make {best_lr} best")
+    check(best.metrics.get("params_sha256") ==
+          want[best_lr]["params_sha256"],
+          "the best trial's reported params differ from the in-process "
+          "run's")
+    t0 = time.perf_counter()
+    state = best.checkpoint.to_dict()["trainable_state"]
+    tree = Checkpoint.from_dict(state["fn_checkpoint"]).to_pytree()
+    sha = params_sha256(tree["params"])
+    read_s = time.perf_counter() - t0
+    check(sha == want[best_lr]["params_sha256"],
+          "the best trial's checkpoint, read on the driver, hashes to "
+          f"{sha}, not the in-process params' "
+          f"{want[best_lr]['params_sha256']}")
+    # Only trials that reached max_t hold a checkpoint to save.
+    full = {f"{i:05d}" for i, lr in enumerate(lrs)
+            if expected[lr] == TUNE_MAX_T}
+    check({s["trial"] for s in probes["saves"] if s["bytes"]} == full,
+          f"the checkpoint saves {probes['saves']}")
+    saves = [s for s in probes["saves"]
+             if s["trial"] == f"{lrs.index(best_lr):05d}"]
+    steps_ms = [x for t in trials for x in t["step_ms"][1:]]
+    return {"lrs": list(lrs), "max_t": TUNE_MAX_T,
+            "grace_period": TUNE_GRACE, "reduction_factor": TUNE_RF,
+            "batch": [B, S], "fit_s": fit_s, "in_process_s": in_process_s,
+            "stops": {str(lr): expected[lr] for lr in lrs},
+            "best_lr": best_lr, "best_params_sha256": sha,
+            "trials": trials, "gaps": gaps,
+            "ms_per_step": statistics.median(steps_ms) if steps_ms
+            else None,
+            "runtime_train_write_free_step_ms":
+            (train_out or {}).get("write_free_step_ms"),
+            "saves": probes["saves"], "best_save_bytes": saves[-1]["bytes"],
+            "best_save_s": [s["s"] for s in saves],
+            "best_read_and_hash_s": read_s,
+            "gpu_actors_max": probes["gpu_actors_max"],
+            "card_mib_before": mib_before,
+            "card_mib_after_stops": [probes["stops"][t["trial"]]["card_mib"]
+                                     for t in trials],
+            "launches": tuple(total)}
+
+
 def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
                   train_ms=None):
     """The runtime core on the card (see the module docstring).
@@ -3163,6 +3533,9 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
         t0 = time.perf_counter()
         data_out = runtime_data(dev, train_cfg, train_out)
         data_out["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tune_out = runtime_tune(dev, train_cfg, train_out)
+        tune_out["step_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = [e for e in os.listdir("/dev/shm")
@@ -3176,6 +3549,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
     emit("runtime_serve", card=smi, **serve_out)
     emit("runtime_train", card=smi, **train_out)
     emit("runtime_data", card=smi, **data_out)
+    emit("runtime_tune", card=smi, **tune_out)
     t0 = time.perf_counter()
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,
@@ -3185,6 +3559,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
     out["serve_launches"] = serve_out["flash_launches"]
     out["train_launches"] = train_out["launches"]
     out["data_launches"] = data_out["launches"]
+    out["tune_launches"] = tune_out["launches"]
     return out
 
 
@@ -3862,12 +4237,14 @@ def run() -> int:
          llama_infer[0] + llama_train["launches"][0] +
          moe_train["launches"][0] + pipe_launches[0] +
          runtime["actor_launches"][0] + runtime["serve_launches"][0] +
-         runtime["train_launches"][0] + runtime["data_launches"][0],
+         runtime["train_launches"][0] + runtime["data_launches"][0] +
+         runtime["tune_launches"][0],
          "launches_inference": infer_launches[0],
          "launches_runtime": runtime["actor_launches"][0],
          "launches_serve": runtime["serve_launches"][0],
          "launches_runtime_train": runtime["train_launches"][0],
          "launches_runtime_data": runtime["data_launches"][0],
+         "launches_runtime_tune": runtime["tune_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],
@@ -3888,10 +4265,12 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1] + llama_train["launches"][1] +
          moe_train["launches"][1] + pipe_launches[1] +
-         runtime["train_launches"][1] + runtime["data_launches"][1],
+         runtime["train_launches"][1] + runtime["data_launches"][1] +
+         runtime["tune_launches"][1],
          "launches_train": train["launches"][1],
          "launches_runtime_train": runtime["train_launches"][1],
          "launches_runtime_data": runtime["data_launches"][1],
+         "launches_runtime_tune": runtime["tune_launches"][1],
          "launches_llama_train": llama_train["launches"][1],
          "launches_moe_train": moe_train["launches"][1],
          "launches_llama_inference": llama_infer[1],
@@ -3907,10 +4286,12 @@ def run() -> int:
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2] + llama_train["launches"][2] +
          moe_train["launches"][2] + pipe_launches[2] +
-         runtime["train_launches"][2] + runtime["data_launches"][2],
+         runtime["train_launches"][2] + runtime["data_launches"][2] +
+         runtime["tune_launches"][2],
          "launches_train": train["launches"][2],
          "launches_runtime_train": runtime["train_launches"][2],
          "launches_runtime_data": runtime["data_launches"][2],
+         "launches_runtime_tune": runtime["tune_launches"][2],
          "launches_llama_train": llama_train["launches"][2],
          "launches_moe_train": moe_train["launches"][2],
          "launches_llama_inference": llama_infer[2],

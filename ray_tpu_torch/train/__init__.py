@@ -8,10 +8,13 @@ BaseTrainer.fit (base_trainer.py:339), DataParallelTrainer
 join one ``torch.distributed`` world (reference
 ``train/torch/config.py:113``), NCCL between cards and gloo on the CPU.
 ``TorchTrainer``/``TorchConfig`` take the place of the JAX package's
-``JaxTrainer``/``JaxConfig``.  The trainers that read Data's datasets
-(GBDT, sklearn, transformers) and ``BatchPredictor`` load when first named
-(``__getattr__``): importing the package imports neither torch nor numpy,
-since the raylet imports it for its train counters.
+``JaxTrainer``/``JaxConfig``.  ``BaseTrainer.as_trainable()``
+(base_trainer.py:500) hands any trainer to ``ray_tpu_torch.tune.Tuner``;
+the package exports the reference's names and no others.  The trainers
+that read Data's datasets (GBDT, sklearn, transformers) and
+``BatchPredictor`` load when first named (``__getattr__``): importing
+the package imports neither torch nor numpy, since the raylet imports it
+for its train counters.
 """
 
 from ray_tpu_torch.train.backend import Backend, BackendConfig

@@ -20,6 +20,10 @@ and restarts with exponential backoff under a bounded budget
 (``FailureConfig.max_failures`` or ``RT_TRAIN_MAX_RECOVERIES``).  A
 planned preemption handoff (worker exits clean after a final checkpoint)
 restarts the gang WITHOUT burning budget.
+
+``shutdown()`` may come from another thread while the training loop
+runs (Tune stopping a trainer's trial): it closes the executor, so a
+recovery in flight places no new gang, and the teardown runs once.
 """
 
 from __future__ import annotations
@@ -78,24 +82,36 @@ class BackendExecutor:
         self._death_event = threading.Event()
         self._dead_actors: List[dict] = []
         self._watch_cb: Optional[Callable] = None
+        self._closed = False
+        self._teardown_lock = threading.Lock()
 
     # -- lifecycle --------------------------------------------------------
+    def _check_open(self):
+        """Raise, tearing down what start() placed so far, once
+        shutdown() has closed the executor."""
+        if self._closed:
+            self._teardown_group()
+            raise TrainBackendError("the executor is shut down")
+
     def start(self):
+        self._check_open()
         sc = self._scaling
         # Head bundle (trainer_resources) first, then one bundle per worker
         # (reference backend_executor.py:138).
         bundles = sc.as_placement_group_bundles()
         worker_offset = len(bundles) - sc.num_workers
-        self._pg = placement_group(bundles, strategy=sc.placement_strategy)
-        if not self._pg.ready(timeout=60.0):
-            remove_placement_group(self._pg)
-            self._pg = None
+        pg = self._pg = placement_group(bundles,
+                                        strategy=sc.placement_strategy)
+        if not pg.ready(timeout=60.0):
+            self._teardown_group()
             raise TrainBackendError(
                 f"placement group for {sc.num_workers} x {sc.bundle()} "
                 "could not be scheduled (insufficient cluster resources)")
+        self._check_open()
         self._group = WorkerGroup(sc.num_workers, sc.bundle(),
-                                  placement_group=self._pg,
+                                  placement_group=pg,
                                   bundle_offset=worker_offset)
+        self._check_open()
         for w in self._group.workers:
             w.actor.set_context.remote(
                 world_rank=w.rank,
@@ -262,8 +278,11 @@ class BackendExecutor:
                 config: Optional[Dict[str, Any]],
                 *, preempted: bool = False) -> bool:
         """Tear down and restart the gang from the latest VERIFIED
-        checkpoint.  Returns False when the failure budget is exhausted.
-        A planned preemption handoff restarts without burning budget."""
+        checkpoint.  Returns False when the failure budget is exhausted
+        or the executor is shut down.  A planned preemption handoff
+        restarts without burning budget."""
+        if self._closed:
+            return False
         if preempted:
             train_metrics.bump("preemptions")
             logger.info("planned preemption handoff; restarting gang from "
@@ -342,20 +361,22 @@ class BackendExecutor:
         return self._num_failures
 
     def _teardown_group(self):
-        self._stop_death_watch()
-        if self._group is not None:
+        with self._teardown_lock:
+            self._stop_death_watch()
+            group, self._group = self._group, None
+            pg, self._pg = self._pg, None
+        if group is not None:
             try:
-                self._backend.on_shutdown(self._group, self._backend_config)
+                self._backend.on_shutdown(group, self._backend_config)
             except Exception:
                 pass
-            self._group.shutdown()
-            self._group = None
-        if self._pg is not None:
+            group.shutdown()
+        if pg is not None:
             try:
-                remove_placement_group(self._pg)
+                remove_placement_group(pg)
             except Exception:
                 pass
-            self._pg = None
 
     def shutdown(self):
+        self._closed = True
         self._teardown_group()

@@ -1,14 +1,15 @@
 """BaseTrainer: the fit() entry point.
 
 Port of ``ray_tpu/train/base_trainer.py`` (reference
-``python/ray/train/base_trainer.py``: BaseTrainer, fit:339).  fit() runs
-the training loop and returns an air.Result.  The reference's
-``as_trainable`` (Tuner(trainer)) comes with the port of Tune.
+``python/ray/train/base_trainer.py``: BaseTrainer, fit:339,
+as_trainable:500).  fit() runs the training loop and returns an
+air.Result; ``as_trainable()`` adapts any trainer into the Tune Trainable
+contract, so ``Tuner(trainer)`` composes as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Type
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
@@ -50,3 +51,9 @@ class BaseTrainer:
             run_trainer_directly)
         self.setup()
         return run_trainer_directly(self)
+
+    def as_trainable(self) -> Type:
+        """Wrap this trainer as a Tune Trainable class (reference
+        base_trainer.py:500) so it can be passed to Tuner."""
+        from ray_tpu_torch.tune.trainable import wrap_trainer_as_trainable
+        return wrap_trainer_as_trainable(self)

@@ -46,6 +46,9 @@ class DataParallelTrainer(BaseTrainer):
         executor = BackendExecutor(
             self._backend_config, self.scaling_config,
             max_failures=self.run_config.failure_config.max_failures)
+        # Tune's trainer trial shuts the gang down through this when the
+        # trial stops (tune/trainable.py _TrainerTrainable.cleanup).
+        self._executor = executor
         executor.start()
         train_fn = self._wrap_train_loop()
         config = self._train_loop_config

@@ -99,7 +99,8 @@ def loop_slice_mesh_gpt(config):
 
 def loop_gpt_train(config):
     """The port's training step in one worker: a small GPT from the JAX
-    init's numpy tree, AdamW(3e-4, b2 0.95, wd 1e-4), one report a step."""
+    init's numpy tree, AdamW(``config["lr"]``, default 3e-4; b2 0.95, wd
+    1e-4), one report a step."""
     import torch
 
     from ray_tpu_torch.models import (GPTConfig, make_train_state,
@@ -107,7 +108,8 @@ def loop_gpt_train(config):
     from ray_tpu_torch.models.gpt import _leaves
 
     cfg = GPTConfig(dtype=torch.float32, **config["cfg"])
-    params, opt = make_train_state(0, cfg, learning_rate=3e-4,
+    params, opt = make_train_state(0, cfg,
+                                   learning_rate=config.get("lr", 3e-4),
                                    weight_decay=1e-4, device="cpu")
     start = params_from_jax(config["params"], cfg, device="cpu")
     with torch.no_grad():

@@ -6,8 +6,8 @@
   would launch the JAX package's processes past the import check).
 * The port's runtime (``ray_tpu_torch/_private``) and the layers the
   cluster's workers run on it (``dag``, ``runtime_env``, ``workflow``,
-  ``dashboard``, ``serve``, ``air``, ``train``) are clean under
-  ``ray_tpu``'s own linter, rtlint.
+  ``dashboard``, ``serve``, ``air``, ``train``, ``data``, ``tune``) are
+  clean under ``ray_tpu``'s own linter, rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -65,7 +65,10 @@ def _port_files():
             "test_torch_data", "test_torch_data_arrow", "test_torch_data_lazy",
             "test_torch_data_ingest", "test_torch_data_gpu",
             "test_torch_batch_predictor", "test_torch_gbdt_sklearn_trainer",
-            "test_torch_transformers_trainer", "test_torch_util_pool_queue")]
+            "test_torch_transformers_trainer", "test_torch_util_pool_queue",
+            "test_torch_tune", "test_torch_tune_searchers",
+            "test_torch_checkpoint_uri", "test_torch_tune_gpu_resources",
+            "test_torch_tune_gpu")]
     assert len(files) > 10
     return files
 
@@ -131,7 +134,7 @@ def test_string_check_sees_a_launch_string():
 # the controller, the ingress, train workers), so they keep the core's
 # rules.
 LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve", "air",
-          "train", "data")
+          "train", "data", "tune")
 
 
 def test_port_runtime_is_rtlint_clean():
@@ -145,8 +148,8 @@ def test_port_runtime_is_rtlint_clean():
 
 
 def test_runtime_layers_are_held_to_the_import_and_string_rules():
-    """Every module of dag, runtime_env, workflow, dashboard, serve, air
-    and train is among the files the two checks above read, and none
+    """Every module of dag, runtime_env, workflow, dashboard, serve, air,
+    train, data and tune is among the files the two checks above read, and none
     imports JAX or ``ray_tpu`` or names a ``ray_tpu.`` module in a
     string."""
     checked = set(_port_files())

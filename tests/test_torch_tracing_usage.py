@@ -2,9 +2,8 @@
 weak 5.1).  Reference analog: util/tracing/tracing_helper.py:53.
 
 The port's runtime under ``test_tracing_usage.py``'s span, state and
-usage cases, one for one.  Of its two library-usage cases, the one that
-tags usage by importing ``data`` is here; the one that imports ``tune``
-comes with Tune;
+usage cases, one for one, the two library-usage cases among them
+(importing ``tune`` and ``data`` tags each library);
 ``test_runtime_never_cold_inits_jax_backend`` becomes
 ``test_runtime_never_inits_cuda``, and ``test_backend_summary_never_inits``
 has no counterpart, since the port keeps no ``_private/jaxutil.py``.
@@ -107,6 +106,18 @@ def test_list_tasks_pagination_and_filters(trace_cluster):
     assert len(page1) == 5 and len(page2) == 5
     ids = {e["task_id"] for e in page1} & {e["task_id"] for e in page2}
     assert not ids                      # pages don't overlap
+
+
+def test_usage_report_collects_cluster_and_libraries(trace_cluster):
+    from ray_tpu_torch._private.usage_stats import (record_library_usage,
+                                                    usage_report)
+    import ray_tpu_torch.tune  # noqa: F401  - library import tags usage
+    record_library_usage("custom-thing")
+    rep = usage_report()
+    assert "tune" in rep["libraries"]
+    assert "custom-thing" in rep["libraries"]
+    assert rep["cluster"]["alive_nodes"] >= 1
+    assert rep["cluster"]["total_resources"].get("CPU", 0) > 0
 
 
 def test_actor_call_spans_join_trace(trace_cluster):

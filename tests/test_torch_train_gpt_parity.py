@@ -10,9 +10,13 @@ b2=0.95)`` on the same batches in this process: loss rtol 1e-5, grad norm
 rtol 1e-4 (the tolerances of test_torch_gpt_train.py, f32 on both sides).
 The second case feeds the trainer from a shuffled Dataset through
 ``iter_device_batches(device="cpu")``, against the JAX step fed by the JAX
-package's Dataset of the same rows and seed.  The loops live in
-``_torch_train_loops.py``: this module imports JAX and the workers must
-not.
+package's Dataset of the same rows and seed.  The third tunes the same
+trainer with ``Tuner`` over two learning rates under ASHA, one trial at a
+time: each trial's losses are held to the JAX step at its rate, and the
+trials the port's runner stopped, and where, to the JAX package's
+``ASHAScheduler`` fed the JAX losses in the same trial order.  The loops
+live in ``_torch_train_loops.py``: this module imports JAX and the
+workers must not.
 """
 
 import jax
@@ -103,3 +107,76 @@ def test_dataset_fed_trainer_matches_jax_train_step(ray_start):  # noqa: F811
         np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(m["grad_norm"], float(jm["grad_norm"]),
                                    rtol=1e-4)
+
+
+class _Trial:
+    """What ASHAScheduler reads of a trial."""
+
+    def __init__(self, trial_id):
+        self.trial_id = trial_id
+        self.scratch = {}
+
+
+def test_tuned_trainer_matches_jax_steps_and_asha(ray_start):  # noqa: F811
+    """``Tuner(TorchTrainer)`` over lr 1e-2 and 1e-4 (in that order) with
+    ``ASHAScheduler(max_t=4, grace_period=1, reduction_factor=2)`` and
+    ``max_concurrent_trials=1`` on four batches.  Both trials take the
+    same first loss (the same init and batch); at the second rung the
+    1e-4 trial trails the 1e-2 trial's loss and is stopped there, while
+    the 1e-2 trial runs to max_t."""
+    from ray_tpu.tune.schedulers import ASHAScheduler as JaxASHA
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tune import TuneConfig, Tuner
+    from ray_tpu_torch.tune.schedulers import ASHAScheduler
+
+    lrs = [1e-2, 1e-4]
+    jcfg = jgpt.GPTConfig(dtype=jnp.float32, **CFG)
+    jparams = jgpt.gpt_init(jax.random.PRNGKey(0), jcfg)
+    batches = [np.random.default_rng(seed).integers(
+        0, CFG["vocab_size"], (4, CFG["max_seq_len"] + 1), dtype=np.int64)
+        for seed in (1, 2, 3, 4)]
+    trainer = TorchTrainer(
+        loops.loop_gpt_train,
+        train_loop_config={"cfg": CFG, "batches": batches,
+                           "params": jax.tree_util.tree_map(np.asarray,
+                                                            jparams)},
+        scaling_config=ScalingConfig(num_workers=1))
+    results = Tuner(
+        trainer,
+        param_space={"train_loop_config": {"lr": tune.grid_search(lrs)}},
+        tune_config=TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=1,
+            scheduler=ASHAScheduler(max_t=4, grace_period=1,
+                                    reduction_factor=2))).fit()
+    assert not results.errors, results.errors
+    got = {r.metrics["config"]["train_loop_config"]["lr"]:
+           [m["loss"] for m in r.metrics_history] for r in results}
+    assert sorted(got) == sorted(lrs)
+
+    want = {}
+    for lr in lrs:
+        tx = optax.adamw(lr, b2=0.95)
+        step = jgpt.make_train_step(jcfg, tx, donate=False)
+        p, state = jparams, tx.init(jparams)
+        want[lr] = []
+        for toks in batches:
+            p, state, jm = step(p, state, {
+                "tokens": jnp.asarray(toks, jnp.int32)})
+            want[lr].append(float(jm["loss"]))
+        np.testing.assert_allclose(got[lr], want[lr][:len(got[lr])],
+                                   rtol=1e-5)
+
+    # The reference's ASHA on the JAX losses, trial after trial.
+    ref = JaxASHA(max_t=4, grace_period=1, reduction_factor=2)
+    ref.set_search_properties("loss", "min")
+    stops = {}
+    for i, lr in enumerate(lrs):
+        trial = _Trial(f"{i:05d}")
+        for it, loss in enumerate(want[lr], start=1):
+            decision = ref.on_trial_result(
+                None, trial, {"loss": loss, "training_iteration": it})
+            if decision == "STOP":
+                stops[lr] = it
+                break
+    assert stops == {1e-2: 4, 1e-4: 2}
+    assert {lr: len(h) for lr, h in got.items()} == stops
