@@ -282,6 +282,33 @@ Every phase prints one JSON line and any failure exits nonzero:
            stop, the card's return and the next trial's start; Tune's
            saves of the best trial's checkpoint (bytes, seconds) and the
            driver's read and hash of it
+  runtime_rllib  RLlib on the same cluster, after runtime_tune: the
+           learner (the algorithm's local policy) in this process on the
+           card, the rollout workers card-less actors (num_cpus only,
+           device="cpu").  PPO at tests/test_rllib.py:216-236's config
+           (CartPole-v1, 2 remote workers x 8 envs, fragment 64, lr 5e-4,
+           num_sgd_iter 6, sgd_minibatch_size 256, entropy_coeff 0.005,
+           seed 0) for RLLIB_PPO_ITERS train() calls: the last
+           episode_reward_mean above the first by more than 10 (the JAX
+           package's bar); the first update's batch through a CPU
+           PPOPolicy from the same weights gives the card's
+           first-minibatch total loss within RLLIB_LOSS_RTOL and every
+           grad leaf within RLLIB_GRAD_RTOL of the leaf's max |g|; after
+           sync_weights every remote worker's weights hash to the
+           learner's; the workers see CUDA_VISIBLE_DEVICES "" and the
+           runtime's actor table shows no live actor holding the card at
+           any sample.  IMPALA at tests/test_rllib_dqn_impala.py:94-105's
+           config (1 remote worker x 4 envs, fragment 16,
+           num_batches_per_step 2, 2 steps): num_updates rises, the
+           losses are finite, its loader lands the batches on the card,
+           and its first update matches the CPU's as PPO's does.  After
+           each algorithm's stop its workers are gone and, after both,
+           the card's allocated memory is back to its reading before the
+           step and memory.used within CARD_MIB_SLACK.  Prints the
+           workers' cold start, sample s and weight-sync ms per
+           iteration, the learner's ms per update on the card beside the
+           same update on the CPU in this process, IMPALA's loader wait
+           per batch and the step's wall time
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -3258,18 +3285,40 @@ CARD_MIB_SLACK = 256
 
 
 @contextlib.contextmanager
+def card_holders():
+    """Samples the runtime's actor table every 0.25 s; yields a record
+    whose ``max`` is the most live actors holding the card at once."""
+    import threading
+
+    from ray_tpu_torch.util import state
+    rec = {"max": 0}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.25):
+            rec["max"] = max(rec["max"], len(
+                [a for a in state.list_actors() if a["state"] == "ALIVE"
+                 and (a.get("resources") or {}).get("GPU")]))
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield rec
+    finally:
+        done.set()
+        thread.join(timeout=30)
+
+
+@contextlib.contextmanager
 def runner_probes(on_card, mib_before):
     """Time the trial runner's trial starts, checkpoint saves and stops
     in this process, and, after each stop, wait for the card to come back:
     the GPU resource (free_card) and the card's memory.used within
-    CARD_MIB_SLACK of ``mib_before``.  A thread samples the runtime's
-    actor table every 0.25 s meanwhile, for the most live actors holding
-    the card at once (nvidia-smi there lists every process on the card
-    as pid 1, so it cannot tell them apart).  Yields the record."""
-    import threading
-
+    CARD_MIB_SLACK of ``mib_before``.  ``card_holders`` counts the live
+    actors holding the card meanwhile (nvidia-smi there lists every
+    process on the card as pid 1, so it cannot tell them apart).  Yields
+    the record."""
     from ray_tpu_torch.tune.execution.trial_runner import TrialRunner
-    from ray_tpu_torch.util import state
     rec = {"starts": {}, "stops": {}, "saves": [], "gpu_actors_max": 0}
     orig = (TrialRunner._start_trial, TrialRunner._checkpoint_trial,
             TrialRunner._stop_actor)
@@ -3309,28 +3358,16 @@ def runner_probes(on_card, mib_before):
                                         "card_free": time.time(),
                                         "card_mib": mib}
 
-    done = threading.Event()
-
-    def sample():
-        while not done.wait(0.25):
-            holders = [a for a in state.list_actors()
-                       if a["state"] == "ALIVE"
-                       and (a.get("resources") or {}).get("GPU")]
-            rec["gpu_actors_max"] = max(rec["gpu_actors_max"],
-                                        len(holders))
-
     TrialRunner._start_trial = start_trial
     TrialRunner._checkpoint_trial = checkpoint_trial
     TrialRunner._stop_actor = stop_actor
-    thread = threading.Thread(target=sample, daemon=True)
-    thread.start()
     try:
-        yield rec
+        with card_holders() as holders:
+            yield rec
     finally:
         (TrialRunner._start_trial, TrialRunner._checkpoint_trial,
          TrialRunner._stop_actor) = orig
-        done.set()
-        thread.join(timeout=30)
+        rec["gpu_actors_max"] = holders["max"]
 
 
 def runtime_tune(dev, cfg, train_out=None, lrs=TUNE_LRS) -> dict:
@@ -3491,6 +3528,267 @@ def runtime_tune(dev, cfg, train_out=None, lrs=TUNE_LRS) -> dict:
             "launches": tuple(total)}
 
 
+# ------------------------------------------------------------ runtime_rllib
+
+RLLIB_PPO_ITERS = 25
+RLLIB_LOSS_RTOL = 1e-5
+RLLIB_GRAD_RTOL = 1e-4
+
+
+def weights_sha256(weights) -> str:
+    """``params_sha256`` of a policy's numpy weight tree."""
+    import torch
+
+    from ray_tpu_torch.rllib.policy import tree_map
+    return params_sha256(tree_map(torch.from_numpy, weights))
+
+
+def _worker_card_and_hash(worker):
+    """On a rollout worker: its card mask, its policy's device and the
+    sha256 of its weights."""
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"), str(worker.policy.device),
+            weights_sha256(worker.get_weights()))
+
+
+def grads_agree(card, cpu, rtol=RLLIB_GRAD_RTOL) -> float:
+    """The largest leaf error over the leaf's max |g| (checked <= rtol)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.policy import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        worst = max(worst, float(np.abs(a - b).max()) /
+                    max(float(np.abs(b).max()), 1e-30))
+    check(worst <= rtol, f"a grad leaf differs by {worst} of its max |g| "
+          f"between the card and the CPU (limit {rtol})")
+    return worst
+
+
+def workers_gone(handles, timeout=30):
+    from ray_tpu_torch.util import state
+    ids = {h._actor_id_hex for h in handles}
+    deadline = time.monotonic() + timeout
+    while True:
+        alive = [a["actor_id"] for a in state.list_actors()
+                 if a["actor_id"] in ids and a["state"] != "DEAD"]
+        if not alive:
+            return
+        check(time.monotonic() < deadline,
+              f"rollout workers {alive} outlive their algorithm's stop")
+        time.sleep(0.2)
+
+
+def _timed(rec, key, fn):
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        rec.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def rllib_ppo(dev, iters=RLLIB_PPO_ITERS) -> dict:
+    import torch
+
+    from ray_tpu_torch.rllib import PPOConfig, PPOPolicy
+    on_card = dev.type == "cuda"
+    config = (PPOConfig().environment("CartPole-v1")
+              .rollouts(num_rollout_workers=2, num_envs_per_worker=8,
+                        rollout_fragment_length=64)
+              .training(lr=5e-4, num_sgd_iter=6, sgd_minibatch_size=256,
+                        entropy_coeff=0.005)
+              .resources(device=None if on_card else "cpu")
+              .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = config.build()
+    algo.workers.ready()
+    cold_s = time.perf_counter() - t0
+    policy = algo.get_policy()
+    check(policy.device.type == dev.type, f"the learner is on "
+          f"{policy.device}, not {dev}")
+    rec, first = {}, {}
+    learn = policy.learn_on_batch
+
+    def learn_timed(batch):
+        if not first:
+            first.update(weights=policy.get_weights(), batch=batch,
+                         card=policy.first_minibatch(batch))
+        sync(dev)
+        t = time.perf_counter()
+        out = learn(batch)            # its stats' copy to the host syncs
+        rec.setdefault("learn", []).append(time.perf_counter() - t)
+        return out
+
+    policy.learn_on_batch = learn_timed
+    ws = algo.workers
+    ws.synchronous_sample = _timed(rec, "sample", ws.synchronous_sample)
+    ws.sync_weights = _timed(rec, "sync", ws.sync_weights)
+    rewards, losses = [], []
+    with card_holders() as holders:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            r = algo.train()
+            rewards.append(r.get("episode_reward_mean"))
+            losses.append(r["learner_total_loss"])
+        train_s = time.perf_counter() - t0
+        ws.sync_weights()
+        seen = ws.foreach_worker(_worker_card_and_hash)[1:]
+    check(all(math.isfinite(x) for x in losses), f"PPO losses {losses}")
+    got = [x for x in rewards if x is not None]
+    check(got and got[-1] > got[0] + 10, f"PPO's episode_reward_mean went "
+          f"from {got[:1]} to {got[-1:]}: not more than 10 up")
+    want = weights_sha256(policy.get_weights())
+    check([s[2] for s in seen] == [want] * 2,
+          f"the workers' weights {[s[2] for s in seen]} are not the "
+          f"learner's {want}")
+    check([s[:2] for s in seen] == [("", "cpu")] * 2,
+          f"the rollout workers see (card mask, device) {seen}")
+    check(holders["max"] == 0, f"{holders['max']} live actors held the "
+          f"card during PPO")
+    cpu = PPOPolicy(4, _space(algo),
+                    dict(algo.config, device="cpu"), seed=policy.seed)
+    cpu.set_weights(first["weights"])
+    stats_cpu, grads_cpu = cpu.first_minibatch(first["batch"])
+    stats_card, grads_card = first["card"]
+    loss_err = abs(stats_card["total_loss"] - stats_cpu["total_loss"]) / \
+        abs(stats_cpu["total_loss"])
+    check(loss_err <= RLLIB_LOSS_RTOL, f"PPO's first-minibatch loss "
+          f"{stats_card['total_loss']} on the card, {stats_cpu['total_loss']}"
+          f" on the CPU")
+    grad_err = grads_agree(grads_card, grads_cpu)
+    cpu_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        cpu.learn_on_batch(first["batch"])
+        cpu_ms.append((time.perf_counter() - t) * 1e3)
+    handles = list(ws.remote_workers)
+    algo.stop()
+    workers_gone(handles)
+    learn_ms = [x * 1e3 for x in rec["learn"]]
+    return {"iterations": iters, "workers": 2, "cold_start_s": cold_s,
+            "train_s": train_s, "rewards": rewards,
+            "reward_first": got[0], "reward_last": got[-1],
+            "losses": losses, "batch_rows": int(first["batch"].count),
+            "updates_per_iteration": 6 * (first["batch"].count // 256),
+            "sample_s": rec["sample"][:iters],
+            "sample_s_median": statistics.median(rec["sample"][:iters]),
+            "sync_ms_median": statistics.median(
+                [x * 1e3 for x in rec["sync"]]),
+            "learner_ms": learn_ms,
+            "learner_ms_median": statistics.median(learn_ms[1:]),
+            "learner_cpu_ms": cpu_ms,
+            "learner_cpu_ms_median": statistics.median(cpu_ms),
+            "first_minibatch_loss": [stats_card["total_loss"],
+                                     stats_cpu["total_loss"]],
+            "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err,
+            "worker_weights_sha256": want, "gpu_actors_max": holders["max"]}
+
+
+def _space(algo):
+    return algo.workers.local_worker.env.action_space
+
+
+def rllib_impala(dev) -> dict:
+    from ray_tpu_torch.rllib import ImpalaConfig, ImpalaPolicy
+    on_card = dev.type == "cuda"
+    config = (ImpalaConfig().environment("CartPole-v1")
+              .rollouts(num_rollout_workers=1, num_envs_per_worker=4,
+                        rollout_fragment_length=16)
+              .training(num_batches_per_step=2)
+              .resources(device=None if on_card else "cpu")
+              .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = config.build()
+    cold_s = time.perf_counter() - t0
+    policy = algo.get_policy()
+    first, rec = {}, {}
+    learn = policy.learn_on_batch
+
+    def learn_first(batch):
+        if not first:
+            first.update(weights=policy.get_weights(),
+                         devices={str(v.device) for v in batch.values()},
+                         batch={k: v.cpu() for k, v in batch.items()},
+                         card=policy.loss_and_grads(batch))
+        sync(dev)
+        t = time.perf_counter()
+        out = learn(batch)
+        rec.setdefault("learn", []).append(time.perf_counter() - t)
+        return out
+
+    policy.learn_on_batch = learn_first
+    with card_holders() as holders:
+        r1 = algo.step()
+        r2 = algo.step()
+    check(r2["num_updates"] > r1["num_updates"] >= 2,
+          f"IMPALA's num_updates {r1['num_updates']}, {r2['num_updates']}")
+    losses = [r1["learner_total_loss"], r2["learner_total_loss"]]
+    check(all(math.isfinite(x) for x in losses), f"IMPALA losses {losses}")
+    check(first["devices"] == {str(policy.device)}, f"the loader put the "
+          f"batch on {first['devices']}, not {policy.device}")
+    check(holders["max"] == 0, f"{holders['max']} live actors held the "
+          f"card during IMPALA")
+    cpu = ImpalaPolicy(4, _space(algo), dict(algo.config, device="cpu"),
+                       seed=policy.seed)
+    cpu.set_weights(first["weights"])
+    stats_cpu, grads_cpu = cpu.loss_and_grads(first["batch"])
+    stats_card, grads_card = first["card"]
+    loss_err = abs(stats_card["total_loss"] - stats_cpu["total_loss"]) / \
+        abs(stats_cpu["total_loss"])
+    check(loss_err <= RLLIB_LOSS_RTOL, f"IMPALA's first loss "
+          f"{stats_card['total_loss']} on the card, "
+          f"{stats_cpu['total_loss']} on the CPU")
+    grad_err = grads_agree(grads_card, grads_cpu)
+    handles = list(algo.workers.remote_workers)
+    loader_wait = list(algo.loader_wait_ms)
+    algo.stop()
+    workers_gone(handles)
+    return {"steps": 2, "num_updates": [r1["num_updates"],
+                                        r2["num_updates"]],
+            "losses": losses, "cold_start_s": cold_s,
+            "loader_wait_ms": loader_wait,
+            "learner_ms": [x * 1e3 for x in rec["learn"]],
+            "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err,
+            "batch_device": sorted(first["devices"]),
+            "gpu_actors_max": holders["max"]}
+
+
+def runtime_rllib(dev, ppo_iters=RLLIB_PPO_ITERS) -> dict:
+    """PPO and IMPALA on the runtime phase's cluster (see the module
+    docstring); returns the step's numbers."""
+    import gc
+
+    import torch
+    on_card = dev.type == "cuda"
+    free_card(on_card)
+    # cuBLAS and cuBLASLt keep a workspace per thread and stream in the
+    # caching allocator for the life of the process (32 MiB and 1 MiB on
+    # the card), and the autograd engine runs a card's backward on a
+    # thread of its own: an addmm with a bias, forward and backward, takes
+    # them before the reading.
+    one = torch.ones((2, 2), device=dev, requires_grad=True)
+    torch.addmm(one[0], one, one).sum().backward()
+    del one
+    empty_cache(dev)
+    alloc_before = torch.cuda.memory_allocated(dev) if on_card else 0
+    mib_before = card_used_mib() if on_card else 0
+    ppo = rllib_ppo(dev, ppo_iters)
+    impala = rllib_impala(dev)
+    gc.collect()
+    empty_cache(dev)
+    alloc_after = torch.cuda.memory_allocated(dev) if on_card else 0
+    mib_after = card_used_mib() if on_card else 0
+    check(alloc_after <= alloc_before, f"the card holds {alloc_after} bytes "
+          f"of tensors after the algorithms' stop, {alloc_before} before")
+    check(mib_after <= mib_before + CARD_MIB_SLACK, f"the card's "
+          f"memory.used is {mib_after} MiB after the step, {mib_before} "
+          f"before")
+    free_card(on_card)
+    return {"ppo": ppo, "impala": impala, "alloc_bytes": [alloc_before,
+                                                          alloc_after],
+            "card_mib": [mib_before, mib_after]}
+
+
 def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
                   train_ms=None):
     """The runtime core on the card (see the module docstring).
@@ -3536,6 +3834,9 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
         t0 = time.perf_counter()
         tune_out = runtime_tune(dev, train_cfg, train_out)
         tune_out["step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rllib_out = runtime_rllib(dev)
+        rllib_out["step_s"] = time.perf_counter() - t0
     finally:
         rt.shutdown()
     left = [e for e in os.listdir("/dev/shm")
@@ -3550,6 +3851,7 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
     emit("runtime_train", card=smi, **train_out)
     emit("runtime_data", card=smi, **data_out)
     emit("runtime_tune", card=smi, **tune_out)
+    emit("runtime_rllib", card=smi, **rllib_out)
     t0 = time.perf_counter()
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,

@@ -1180,19 +1180,24 @@ class Raylet:
                 "bundle_index": req.bundle_index}
 
     async def _h_return_lease(self, conn, msg):
+        # A lease charged to a bundle returns its resources to the bundle.
+        # When the bundle went first (its group removed while the task
+        # ran), return_bundle has already given the node the bundle's
+        # whole shape back, so the lease returns them to no pool: adding
+        # them to the node as well would mint capacity.  Its card ids still
+        # go back below, once.
         pool = self.resources_available
         if msg.get("pg_id") is not None:
-            pool = self.bundles.get((msg["pg_id"], msg.get("bundle_index", 0)),
-                                    self.resources_available)
+            pool = self.bundles.get((msg["pg_id"], msg.get("bundle_index", 0)))
         if msg.get("lease_id") in self._blocked_leases:
             # Resources were already handed back when the worker blocked
             # in get(); adding again would mint capacity.  Its cards were
             # not (see _h_worker_blocked).
             self._blocked_leases.discard(msg["lease_id"])
             gpus = msg.get("resources", {}).get("GPU", 0)
-            if gpus:
+            if gpus and pool is not None:
                 pool["GPU"] = pool.get("GPU", 0.0) + gpus
-        else:
+        elif pool is not None:
             for k, v in msg.get("resources", {}).items():
                 pool[k] = pool.get(k, 0.0) + v
         self._give_gpus(self._lease_gpus.pop(msg.get("lease_id"), []))
@@ -1236,10 +1241,11 @@ class Raylet:
 
     def _pool_of(self, pg_id, bundle_index):
         """Bundle pool when the lease rode a PG bundle, else the node
-        pool (shared by the lease/blocked/death accounting paths)."""
+        pool (shared by the blocked/unblocked accounting paths).  None
+        when the lease's bundle is gone: return_bundle gave the node the
+        bundle's whole shape, so the lease's share belongs to no pool."""
         if pg_id is not None:
-            return self.bundles.get((pg_id, bundle_index),
-                                    self.resources_available)
+            return self.bundles.get((pg_id, bundle_index))
         return self.resources_available
 
     async def _h_worker_blocked(self, conn, msg):
@@ -1254,7 +1260,7 @@ class Raylet:
         resources, pg_id, bidx = w.lease_resources
         pool = self._pool_of(pg_id, bidx)
         for k, v in resources.items():
-            if k != "GPU":
+            if k != "GPU" and pool is not None:
                 pool[k] = pool.get(k, 0.0) + v
         w.blocked = True
         self._blocked_leases.add(w.lease_id)
@@ -1271,7 +1277,7 @@ class Raylet:
         resources, pg_id, bidx = w.lease_resources
         pool = self._pool_of(pg_id, bidx)
         for k, v in resources.items():
-            if k != "GPU":
+            if k != "GPU" and pool is not None:
                 pool[k] = pool.get(k, 0.0) - v
         w.blocked = False
         self._blocked_leases.discard(w.lease_id)

@@ -7,8 +7,10 @@ split into two hosts, dp across them) and ``pipeline`` (the reference's
 ``dryrun_pipeline``: GPipe and 1F1B train steps over pp) each run as a
 gang of ``n`` ranks (``parallel.gang.run_gang``: fresh processes, a
 file-store rendezvous), one after another under one shared deadline, and
-print their loss lines.  The reference's ``rl`` stage waits for the port
-of RLlib.
+print their loss lines.  The ``rl`` stage (PPO with its learner over
+``n`` devices for two ``train()`` calls) runs last in this process, as
+the reference's does: the dp learner is one process over n devices, not
+a gang (n cards on ``"cuda"``, n virtual shards on ``"cpu"``).
 
 ``device_type`` is ``"cuda"`` by default (NCCL, one card per rank: it
 raises without ``n`` cards); ``"cpu"`` runs gloo ranks on the CPU.
@@ -25,7 +27,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-WAITING = {"rl": "waits for the port of RLlib"}
+WAITING: Dict[str, str] = {}
 DEADLINE_S = 280.0
 
 
@@ -213,9 +215,34 @@ def _pipeline_stage(rank: int, world: int, device_type: str) -> str:
     return "\n".join(lines)
 
 
+def _rl_stage(n: int, device_type: str) -> str:
+    """The reference's ``_dryrun_rl``: PPO's minibatch SGD with the
+    learner over n devices (shard grads averaged each step), two
+    ``train()`` calls on CartPole."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=8,
+                      rollout_fragment_length=32)
+            .training(num_sgd_iter=2, sgd_minibatch_size=64)
+            .resources(num_learner_devices=n, device=_device(device_type))
+            .debugging(seed=0).build())
+    r1 = algo.train()
+    r2 = algo.train()
+    algo.stop()
+    loss = r2.get("learner_total_loss", float("nan"))
+    if not np.isfinite(loss):
+        raise RuntimeError(f"rl dryrun loss {loss} not finite")
+    return (f"rl dryrun: PPO learner dp={n} loss={loss:.4f} "
+            f"reward={r2.get('episode_reward_mean', 0):.1f} "
+            f"(step1 reward={r1.get('episode_reward_mean', 0):.1f})")
+
+
 STAGES: Dict[str, Callable[[int, int, str], str]] = {
     "main": _main_stage, "moe": _moe_stage, "multislice": _multislice_stage,
     "pipeline": _pipeline_stage}
+# Stages that run in this process over n devices: (n, device_type) -> line.
+IN_PROCESS: Dict[str, Callable[[int, str], str]] = {"rl": _rl_stage}
 
 
 def _skip_reason(name: str, n: int) -> Optional[str]:
@@ -230,10 +257,10 @@ def _skip_reason(name: str, n: int) -> Optional[str]:
 
 def dryrun_multichip(n_devices: int, device_type: Optional[str] = None,
                      stages: Optional[List[str]] = None) -> Dict[str, str]:
-    """Run the stages (all by default) as gangs of ``n_devices`` ranks,
-    one after another under one deadline; print and return each stage's
-    loss line.  Raises on the first stage that fails or runs out of
-    time."""
+    """Run the stages (all by default): the gang stages as gangs of
+    ``n_devices`` ranks, one after another under one deadline, then the
+    in-process ``rl`` stage; print and return each stage's loss line.
+    Raises on the first stage that fails or runs out of time."""
     from ray_tpu_torch.parallel.gang import run_gang
     from ray_tpu_torch.parallel.mesh import mesh_device_type
 
@@ -241,10 +268,12 @@ def dryrun_multichip(n_devices: int, device_type: Optional[str] = None,
     backend = "nccl" if device_type == "cuda" else "gloo"
     deadline = time.monotonic() + DEADLINE_S
     lines = {}
-    for name in stages or list(STAGES):
+    for name in stages or list(STAGES) + list(IN_PROCESS):
         reason = _skip_reason(name, n_devices)
         if reason:
             lines[name] = f"{name} dryrun SKIPPED ({reason})"
+        elif name in IN_PROCESS:
+            lines[name] = IN_PROCESS[name](n_devices, device_type)
         else:
             out = run_gang(STAGES[name], n_devices, (device_type,),
                            timeout_s=max(1.0, deadline - time.monotonic()),

@@ -14,6 +14,56 @@ from ray_tpu_torch.util import (
 )
 
 
+def _wait_available(want, timeout=60.0):
+    import time
+    deadline = time.monotonic() + timeout
+    while True:
+        got = {k: ray_tpu_torch.available_resources().get(k) for k in want}
+        if got == want or time.monotonic() > deadline:
+            return got
+        time.sleep(0.1)
+
+
+def test_task_of_a_removed_group_returns_its_card_once(tmp_path):
+    """ROADMAP C11: a num_gpus=1 task leased from a one-bundle group whose
+    group is removed while it runs.  return_bundle gives the node the
+    bundle's whole shape back, so the task's end must return its resources
+    to no pool (the node would read GPU 3.0, CPU 9.0) and its card id
+    once.  Runs before the module's cluster starts: it needs its own node
+    of 2 fake cards and 8 CPUs."""
+    import os
+    import time
+    release = tmp_path / "release"
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": 2})
+    try:
+        pg = placement_group([{"GPU": 1, "CPU": 1}], strategy="PACK")
+        assert pg.ready(timeout=30)
+
+        @ray_tpu_torch.remote(num_gpus=1, num_cpus=1)
+        def held(path):
+            while not os.path.exists(path):
+                time.sleep(0.05)
+            return os.environ["CUDA_VISIBLE_DEVICES"]
+
+        ref = held.options(
+            scheduling_strategy=PlacementGroupSchedulingStrategy(
+                placement_group=pg, placement_group_bundle_index=0)).remote(
+                    str(release))
+        assert _wait_available({"GPU": 1.0, "CPU": 7.0}) == \
+            {"GPU": 1.0, "CPU": 7.0}
+        remove_placement_group(pg)
+        release.touch()
+        assert ray_tpu_torch.get(ref, timeout=60) in ("0", "1")
+        time.sleep(1.0)
+        assert _wait_available({"GPU": 2.0, "CPU": 8.0}) == \
+            {"GPU": 2.0, "CPU": 8.0}
+        ids = ray_tpu_torch.get([held.remote(str(release)),
+                                 held.remote(str(release))], timeout=60)
+        assert sorted(ids) == ["0", "1"], ids
+    finally:
+        ray_tpu_torch.shutdown()
+
+
 @pytest.fixture(scope="module")
 def pg_cluster():
     c = Cluster(head_node_args={"num_cpus": 4})

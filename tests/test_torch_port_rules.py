@@ -6,8 +6,8 @@
   would launch the JAX package's processes past the import check).
 * The port's runtime (``ray_tpu_torch/_private``) and the layers the
   cluster's workers run on it (``dag``, ``runtime_env``, ``workflow``,
-  ``dashboard``, ``serve``, ``air``, ``train``, ``data``, ``tune``) are
-  clean under ``ray_tpu``'s own linter, rtlint.
+  ``dashboard``, ``serve``, ``air``, ``train``, ``data``, ``tune``,
+  ``rllib``) are clean under ``ray_tpu``'s own linter, rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -68,7 +68,12 @@ def _port_files():
             "test_torch_transformers_trainer", "test_torch_util_pool_queue",
             "test_torch_tune", "test_torch_tune_searchers",
             "test_torch_checkpoint_uri", "test_torch_tune_gpu_resources",
-            "test_torch_tune_gpu")]
+            "test_torch_tune_gpu", "test_torch_rllib",
+            "test_torch_rllib_learner", "test_torch_rllib_offline_recurrent",
+            "test_torch_rllib_pixel", "test_torch_rllib_policy_server",
+            "test_torch_gym_compat", "test_torch_rllib_new_algos",
+            "test_torch_rllib_dqn_impala", "test_torch_rllib_gpu_resources",
+            "test_torch_rllib_gpu")]
     assert len(files) > 10
     return files
 
@@ -131,10 +136,10 @@ def test_string_check_sees_a_launch_string():
 
 
 # The runtime's layers above the core: workers run them (serve replicas,
-# the controller, the ingress, train workers), so they keep the core's
-# rules.
+# the controller, the ingress, train workers, rollout workers), so they
+# keep the core's rules.
 LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve", "air",
-          "train", "data", "tune")
+          "train", "data", "tune", "rllib")
 
 
 def test_port_runtime_is_rtlint_clean():
@@ -149,7 +154,8 @@ def test_port_runtime_is_rtlint_clean():
 
 def test_runtime_layers_are_held_to_the_import_and_string_rules():
     """Every module of dag, runtime_env, workflow, dashboard, serve, air,
-    train, data and tune is among the files the two checks above read, and none
+    train, data, tune and rllib is among the files the two checks above
+    read, and none
     imports JAX or ``ray_tpu`` or names a ``ray_tpu.`` module in a
     string."""
     checked = set(_port_files())
@@ -221,10 +227,14 @@ def test_entry_points_raise_without_a_card(no_card):
                                       init_paged_cache, llama_init,
                                       llama_init_paged_cache, mlp_init,
                                       params_from_jax)
+    from ray_tpu_torch.rllib import PPOConfig, PPOPolicy, Space
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
 
     cfg = GPTConfig.tiny(vocab=32, seq=16)
     lcfg = LlamaConfig.tiny(vocab=32, seq=16)
+    ppo = (PPOConfig().environment("CartPole-v1")
+           .rollouts(num_rollout_workers=0, num_envs_per_worker=2,
+                     rollout_fragment_length=8))
     tree = {"wte": np.zeros((32, 64), np.float32)}
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
@@ -246,7 +256,9 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: gpt_init(0, dataclasses.replace(cfg,
                                                          num_experts=4)),
                  lambda: dryrun_multichip(2),
-                 lambda: dryrun_pipeline(2)):
+                 lambda: dryrun_pipeline(2),
+                 lambda: PPOPolicy(4, Space("discrete", n=2), {}),
+                 lambda: ppo.build()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -274,6 +286,16 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
         return toks
 
     assert len(asyncio.run(run())) == 4
+
+    from ray_tpu_torch.rllib import PPOConfig, PPOPolicy, Space
+    pol = PPOPolicy(4, Space("discrete", n=2), {"device": "cpu"})
+    assert pol.params["pi"]["w"].device == torch.device("cpu")
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=2,
+                      rollout_fragment_length=8)
+            .resources(device="cpu").build())
+    assert np.isfinite(algo.train()["learner_total_loss"])
+    algo.stop()
 
 
 def test_options_of_unported_modules_raise():

@@ -10,7 +10,7 @@ losses within |dloss| < 1e-4 after two SGD steps from the JAX init, and
 the single-device loss within the same of JAX's own ``make_train_step``.
 Adds the flash op on a mesh (remat "dots", blocked head), the dryrun twin
 of ``__graft_entry__.dryrun_multichip`` at n=8 (its stages main, moe,
-multislice and pipeline; only rl is not run), and the autotune
+multislice, pipeline and rl), and the autotune
 dispatcher's ring variant against the dense reference at atol 2e-5
 (mirrors tests/test_autotune.py:272).
 
@@ -18,7 +18,8 @@ The torch side runs in six gloo gangs of 8 ranks, one for each part of
 ``_torch_gang.MODEL_PARTS`` (GPT's two 1-d meshes and its two 3-d ones,
 LLaMA's two, the single-device matches, the flash op, ring attention),
 each under its own 120 s deadline (rank function ``models_world8``); the
-dryrun runs its own four gangs under its own deadline.
+dryrun runs its own four gangs under its own deadline, then its rl stage
+in the test's process (PPO's learner over 8 CPU shards).
 """
 
 import math
@@ -175,7 +176,7 @@ def test_dispatched_ring_variant_matches_dense_reference(ring8):
 def test_dryrun_multichip_twin(capsys):
     with gang.one_gang_at_a_time():
         lines = dryrun_multichip(8, "cpu")
-    assert set(lines) == {"main", "moe", "multislice", "pipeline"}
+    assert set(lines) == {"main", "moe", "multislice", "pipeline", "rl"}
     for name, text in lines.items():
         for line in text.splitlines():
             loss = float(re.search(r"loss=(-?[0-9.]+)", line).group(1))
@@ -189,6 +190,7 @@ def test_dryrun_multichip_twin(capsys):
         "dense pp x dp", "flash pp x dp", "moe pp x ep", "1f1b pp x dp"]
     assert all("matches reference" in line for line in pipe)
     assert "M=16" in pipe[-1] and "activation memory" in pipe[-1]
+    assert "PPO learner dp=8" in lines["rl"]
     out = capsys.readouterr().out
-    assert "[rl] not run" in out and "not run" not in out.replace(
-        "[rl] not run", "")
+    assert "[rl] rl dryrun: PPO learner dp=8 loss=" in out
+    assert "not run" not in out
