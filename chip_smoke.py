@@ -301,14 +301,35 @@ Every phase prints one JSON line and any failure exits nonzero:
            config (1 remote worker x 4 envs, fragment 16,
            num_batches_per_step 2, 2 steps): num_updates rises, the
            losses are finite, its loader lands the batches on the card,
-           and its first update matches the CPU's as PPO's does.  After
-           each algorithm's stop its workers are gone and, after both,
-           the card's allocated memory is back to its reading before the
-           step and memory.used within CARD_MIB_SLACK.  Prints the
-           workers' cold start, sample s and weight-sync ms per
-           iteration, the learner's ms per update on the card beside the
-           same update on the CPU in this process, IMPALA's loader wait
-           per batch and the step's wall time
+           and its first update matches the CPU's as PPO's does.  Ape-X
+           DQN at tests/test_rllib_apex.py:14-19's config (CartPole-v1,
+           3 remote workers x 4 envs, fragment 4, 2 card-less replay
+           shard actors, lr 1e-3, learning_starts 500, 16 updates a
+           train() call, target sync every 60 updates, broadcast every 2,
+           seed 0) for RLLIB_APEX_ITERS train() calls: num_updates 16 a
+           call, finite losses, the epsilon ladder of the reference test
+           (3 rungs, 0.4 first, under 0.01 last, falling), every shard
+           holding experience and seeing CUDA_VISIBLE_DEVICES "", the
+           workers' weights hashing to the learner's after a broadcast,
+           no live actor holding the card, and the first update's loss
+           and grads matching a CPU DQNPolicy from the same weights and
+           batch.  SAC at tests/test_rllib_dqn_impala.py:178-184's config
+           (Pendulum-v1, the local worker sampling on the card) for
+           RLLIB_SAC_STEPS steps and QMIX at tests/test_rllib_qmix.py:
+           18-22's (TwoStepGame-v0, qmix mixer, full exploration) for
+           RLLIB_QMIX_STEPS steps: finite losses, the first update
+           against the CPU from the same weights, batch and noise (SAC's
+           critic loss within RLLIB_LOSS_RTOL relative, its actor loss,
+           alpha and entropy within it of max(|x|, 1)).  After every
+           algorithm's stop its actors are gone and the card's allocated
+           memory is back to its reading before the step and memory.used
+           within CARD_MIB_SLACK.  Prints the workers' cold start (Ape-X's
+           3 workers and 2 shards answering), sample s and weight-sync ms
+           per iteration, the learner's ms per update on the card beside
+           the same update on the CPU in this process, IMPALA's loader
+           wait per batch, Ape-X's shard.sample round trip per update and
+           harvest ms per train() call, QMIX's ms per episode (one greedy
+           forward on the card a step) and each algorithm's wall time
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -3753,11 +3774,301 @@ def rllib_impala(dev) -> dict:
             "gpu_actors_max": holders["max"]}
 
 
-def runtime_rllib(dev, ppo_iters=RLLIB_PPO_ITERS) -> dict:
-    """PPO and IMPALA on the runtime phase's cluster (see the module
-    docstring); returns the step's numbers."""
+RLLIB_APEX_ITERS = 10
+RLLIB_APEX_UPDATES = 16
+RLLIB_SAC_STEPS = 4
+RLLIB_QMIX_STEPS = 10
+
+
+def _stat_err(card, cpu, floor=0.0) -> float:
+    """|card - cpu| over max(|cpu|, floor)."""
+    return abs(card - cpu) / max(abs(cpu), floor, 1e-30)
+
+
+def rllib_apex(dev, iters=RLLIB_APEX_ITERS) -> dict:
+    """Ape-X DQN at tests/test_rllib_apex.py:14-19's config."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import ApexDQNConfig, DQNPolicy
+    on_card = dev.type == "cuda"
+    config = (ApexDQNConfig().environment("CartPole-v1")
+              .rollouts(num_rollout_workers=3, num_envs_per_worker=4,
+                        rollout_fragment_length=4)
+              .training(lr=1e-3, learning_starts=500,
+                        num_train_iters=RLLIB_APEX_UPDATES,
+                        target_network_update_freq=60, broadcast_interval=2)
+              .resources(device=None if on_card else "cpu")
+              .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = config.build()
+    rt.get([sh.size.remote() for sh in algo.replay_shards], timeout=120)
+    cold_s = time.perf_counter() - t0
+    policy = algo.get_policy()
+    check(policy.device.type == dev.type, f"Ape-X's learner is on "
+          f"{policy.device}, not {dev}")
+    eps = algo._worker_eps
+    check(len(eps) == 3 and abs(eps[0] - 0.4) <= 1e-6 * 0.4
+          and eps[-1] < 0.01 and all(a > b for a, b in zip(eps, eps[1:])),
+          f"Ape-X's epsilon ladder {eps}")
+    rec, first = {}, {}
+    learn = policy.learn_on_batch
+
+    def learn_timed(batch):
+        if not first:
+            first.update(weights=policy.get_weights(), batch=batch,
+                         card=policy.loss_and_grads(batch))
+        sync(dev)
+        t = time.perf_counter()
+        out = learn(batch)            # its host copy of the TD errors syncs
+        rec.setdefault("learn", []).append(time.perf_counter() - t)
+        return out
+
+    policy.learn_on_batch = learn_timed
+    algo._harvest = _timed(rec, "harvest", algo._harvest)
+    updates, losses, rewards, harvest_ms = [], [], [], []
+    with card_holders() as holders:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            n = len(rec.get("harvest", []))
+            r = algo.train()
+            harvest_ms.append(sum(rec["harvest"][n:]) * 1e3)
+            updates.append(r["num_updates"])
+            losses.append(r["learner_loss"])
+            rewards.append(r.get("episode_reward_mean"))
+        train_s = time.perf_counter() - t0
+        sizes = rt.get([sh.size.remote() for sh in algo.replay_shards],
+                       timeout=60)
+        shard_cards = rt.get([sh.visible_cards.remote()
+                              for sh in algo.replay_shards], timeout=60)
+        algo.workers.sync_weights()
+        seen = algo.workers.foreach_worker(_worker_card_and_hash)[1:]
+    check(updates == [RLLIB_APEX_UPDATES * (i + 1) for i in range(iters)],
+          f"Ape-X's num_updates {updates}")
+    check(all(math.isfinite(x) for x in losses), f"Ape-X losses {losses}")
+    check(all(x > 0 for x in sizes), f"Ape-X's shard sizes {sizes}")
+    want = weights_sha256(policy.get_weights())
+    check([x[2] for x in seen] == [want] * 3, f"the workers' weights "
+          f"{[x[2] for x in seen]} are not the learner's {want}")
+    check([x[:2] for x in seen] == [("", "cpu")] * 3,
+          f"Ape-X's workers see (card mask, device) {seen}")
+    check(shard_cards == ["", ""], f"the replay shards see cards "
+          f"{shard_cards}")
+    check(holders["max"] == 0, f"{holders['max']} live actors held the "
+          f"card during Ape-X")
+    cpu = DQNPolicy(4, _space(algo), dict(algo.config, device="cpu"),
+                    seed=policy.seed)
+    cpu.set_weights(first["weights"])
+    cpu.target_params = cpu.params     # the target at the first update
+    loss_cpu, grads_cpu = cpu.loss_and_grads(first["batch"])
+    loss_card, grads_card = first["card"]
+    loss_err = _stat_err(loss_card, loss_cpu)
+    check(loss_err <= RLLIB_LOSS_RTOL, f"Ape-X's first loss {loss_card} on "
+          f"the card, {loss_cpu} on the CPU")
+    grad_err = grads_agree(grads_card, grads_cpu)
+    cpu_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        cpu.learn_on_batch(first["batch"])
+        cpu_ms.append((time.perf_counter() - t) * 1e3)
+    handles = list(algo.workers.remote_workers) + list(algo.replay_shards)
+    sample_ms = list(algo.sample_ms)
+    algo.stop()
+    workers_gone(handles)
+    learn_ms = [x * 1e3 for x in rec["learn"]]
+    return {"iterations": iters, "workers": 3, "shards": 2,
+            "cold_start_s": cold_s, "train_s": train_s,
+            "worker_epsilons": eps, "num_updates": updates,
+            "losses": losses, "rewards": rewards, "shard_sizes": sizes,
+            "learner_ms_median": statistics.median(learn_ms[1:]),
+            "learner_ms_p90": float(np.percentile(learn_ms[1:], 90)),
+            "learner_cpu_ms": cpu_ms,
+            "learner_cpu_ms_median": statistics.median(cpu_ms),
+            "shard_sample_ms_median": statistics.median(sample_ms),
+            "shard_sample_ms_p90": float(np.percentile(sample_ms, 90)),
+            "shard_samples": len(sample_ms),
+            "harvest_ms_per_train": harvest_ms,
+            "train_ms_per_call": train_s * 1e3 / iters,
+            "first_loss": [loss_card, loss_cpu],
+            "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err,
+            "worker_weights_sha256": want, "gpu_actors_max": holders["max"],
+            "torch_threads": torch.get_num_threads()}
+
+
+def rllib_sac(dev, steps=RLLIB_SAC_STEPS) -> dict:
+    """SAC at tests/test_rllib_dqn_impala.py:178-184's config (the local
+    worker samples: no actor)."""
+    from ray_tpu_torch.rllib import SACConfig, SACPolicy, weights_from_jax
+    from ray_tpu_torch.rllib.policy import tree_to_numpy
+    on_card = dev.type == "cuda"
+    config = (SACConfig().environment("Pendulum-v1")
+              .rollouts(num_rollout_workers=0, num_envs_per_worker=4)
+              .training(learning_starts=64, train_batch_size=32,
+                        num_train_iters=2, rollout_fragment_length=8)
+              .resources(device=None if on_card else "cpu")
+              .debugging(seed=0))
+    algo = config.build()
+    policy = algo.get_policy()
+    check(policy.device.type == dev.type, f"SAC's learner is on "
+          f"{policy.device}, not {dev}")
+    rec, first = {}, {}
+    learn = policy.learn_on_batch
+
+    def learn_timed(batch):
+        if not first:
+            noise = policy.draw_noise(batch.count)
+            first.update(weights=policy.get_weights(), batch=batch,
+                         target=tree_to_numpy(policy.target), noise=noise)
+            stats, grads = policy.learn_with_grads(batch, noise)
+            first["card"] = (stats, grads)
+            return stats
+        sync(dev)
+        t = time.perf_counter()
+        out = learn(batch)            # its stats' copy to the host syncs
+        rec.setdefault("learn", []).append(time.perf_counter() - t)
+        return out
+
+    policy.learn_on_batch = learn_timed
+    results = [algo.step() for _ in range(steps)]
+    crit = [r["critic_loss"] for r in results if "critic_loss" in r]
+    check(len(crit) >= 2 and all(math.isfinite(x) for x in crit),
+          f"SAC's critic losses {crit}")
+    cpu = SACPolicy(3, _space(algo), dict(algo.config, device="cpu"),
+                    seed=policy.seed)
+    cpu.set_weights(first["weights"])
+    cpu.target = weights_from_jax(first["target"], "cpu")
+    stats_cpu, grads_cpu = cpu.learn_with_grads(first["batch"],
+                                                first["noise"])
+    stats_card, grads_card = first["card"]
+    # The critic loss is a mean of squares (plain relative); the actor
+    # loss, alpha and the entropy are means of terms of size ~1 that
+    # nearly cancel (held to 1e-5 of max(|x|, 1)).
+    errs = {k: _stat_err(stats_card[k], stats_cpu[k],
+                         0.0 if k == "critic_loss" else 1.0)
+            for k in stats_cpu}
+    check(max(errs.values()) <= RLLIB_LOSS_RTOL, f"SAC's first update "
+          f"{stats_card} on the card, {stats_cpu} on the CPU")
+    grad_err = grads_agree(grads_card, grads_cpu)
+    cpu_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        cpu.learn_on_batch(first["batch"])
+        cpu_ms.append((time.perf_counter() - t) * 1e3)
+    algo.stop()
+    learn_ms = [x * 1e3 for x in rec["learn"]]
+    return {"steps": steps, "critic_losses": crit,
+            "learner_ms": learn_ms,
+            "learner_ms_median": statistics.median(learn_ms),
+            "learner_cpu_ms": cpu_ms,
+            "learner_cpu_ms_median": statistics.median(cpu_ms),
+            "first_stats": [stats_card, stats_cpu],
+            "first_stat_rel_err": errs, "first_grad_rel_err": grad_err}
+
+
+def rllib_qmix(dev, steps=RLLIB_QMIX_STEPS) -> dict:
+    """QMIX at tests/test_rllib_qmix.py:18-22's config."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import QMIX, QMIXConfig, weights_from_jax
+    from ray_tpu_torch.rllib.policy import tree_to_numpy
+    on_card = dev.type == "cuda"
+    config = (QMIXConfig().environment("TwoStepGame-v0")
+              .training(mixer="qmix", epsilon_initial=1.0,
+                        epsilon_final=1.0, lr=1e-3,
+                        target_network_update_freq=50)
+              .resources(device=None if on_card else "cpu")
+              .debugging(seed=0))
+    algo = config.build()
+    check(algo.device.type == dev.type, f"QMIX runs on {algo.device}, not "
+          f"{dev}")
+    rec, first = {}, {}
+    update, episode = algo._update, algo._run_episode
+
+    def update_timed(batch):
+        if not first:
+            first.update(
+                weights=algo.save_checkpoint(),
+                targets=(tree_to_numpy(algo.t_q), tree_to_numpy(algo.t_m)),
+                batch={k: v.cpu() for k, v in batch.items()},
+                card=algo.loss_and_grads(batch))
+        sync(dev)
+        t = time.perf_counter()
+        loss = update(batch)
+        float(loss)
+        rec.setdefault("update", []).append(time.perf_counter() - t)
+        return loss
+
+    def episode_timed():
+        t = time.perf_counter()
+        out = episode()
+        rec.setdefault("episode", []).append(time.perf_counter() - t)
+        return out
+
+    algo._update, algo._run_episode = update_timed, episode_timed
+    results = [algo.step() for _ in range(steps)]
+    losses = [r["loss"] for r in results]
+    # The first 3 steps fill the buffer to learning_starts (64 transitions,
+    # 16 a step) and make no update: their loss is nan.
+    check(all(math.isnan(x) for x in losses[:3])
+          and all(math.isfinite(x) for x in losses[3:]),
+          f"QMIX losses {losses}")
+    check(len(rec["update"]) == 4 * (steps - 3), f"QMIX made "
+          f"{len(rec['update'])} updates")
+    greedy = algo.greedy_episode_reward()
+    cpu = QMIX(config=dict(algo.config, device="cpu"))
+    cpu.load_checkpoint(first["weights"])
+    cpu.t_q = weights_from_jax(first["targets"][0], "cpu")
+    cpu.t_m = weights_from_jax(first["targets"][1], "cpu")
+    loss_cpu, grads_cpu = cpu.loss_and_grads(first["batch"])
+    loss_card, grads_card = first["card"]
+    loss_err = _stat_err(loss_card, loss_cpu)
+    check(loss_err <= RLLIB_LOSS_RTOL, f"QMIX's first loss {loss_card} on "
+          f"the card, {loss_cpu} on the CPU")
+    grad_err = grads_agree(grads_card, grads_cpu)
+    cpu_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        float(cpu._update(first["batch"]))
+        cpu_ms.append((time.perf_counter() - t) * 1e3)
+    algo.stop()
+    update_ms = [x * 1e3 for x in rec["update"]]
+    episode_ms = [x * 1e3 for x in rec["episode"]]
+    return {"steps": steps,
+            "losses": [None if math.isnan(x) else x for x in losses],
+            "episode_reward_mean": results[-1]["episode_reward_mean"],
+            "greedy_reward": greedy, "updates": len(update_ms),
+            "update_ms_median": statistics.median(update_ms[1:]),
+            "update_cpu_ms": cpu_ms,
+            "update_cpu_ms_median": statistics.median(cpu_ms),
+            "episodes": len(episode_ms),
+            "episode_ms_median": statistics.median(episode_ms),
+            "episode_ms_p90": float(np.percentile(episode_ms, 90)),
+            "first_loss": [loss_card, loss_cpu],
+            "first_loss_rel_err": loss_err, "first_grad_rel_err": grad_err}
+
+
+def card_back(dev, alloc_before, mib_before, after: str) -> list:
+    """Check that the card's allocated bytes and memory.used are back to
+    the step's reading; returns [bytes, MiB]."""
     import gc
 
+    import torch
+    on_card = dev.type == "cuda"
+    gc.collect()
+    empty_cache(dev)
+    alloc = torch.cuda.memory_allocated(dev) if on_card else 0
+    mib = card_used_mib() if on_card else 0
+    check(alloc <= alloc_before, f"the card holds {alloc} bytes of tensors "
+          f"after {after}'s stop, {alloc_before} before the step")
+    check(mib <= mib_before + CARD_MIB_SLACK, f"the card's memory.used is "
+          f"{mib} MiB after {after}'s stop, {mib_before} before the step")
+    return [alloc, mib]
+
+
+def runtime_rllib(dev, ppo_iters=RLLIB_PPO_ITERS) -> dict:
+    """PPO, IMPALA, Ape-X DQN, SAC and QMIX on the runtime phase's
+    cluster (see the module docstring); returns the step's numbers."""
     import torch
     on_card = dev.type == "cuda"
     free_card(on_card)
@@ -3772,21 +4083,19 @@ def runtime_rllib(dev, ppo_iters=RLLIB_PPO_ITERS) -> dict:
     empty_cache(dev)
     alloc_before = torch.cuda.memory_allocated(dev) if on_card else 0
     mib_before = card_used_mib() if on_card else 0
-    ppo = rllib_ppo(dev, ppo_iters)
-    impala = rllib_impala(dev)
-    gc.collect()
-    empty_cache(dev)
-    alloc_after = torch.cuda.memory_allocated(dev) if on_card else 0
-    mib_after = card_used_mib() if on_card else 0
-    check(alloc_after <= alloc_before, f"the card holds {alloc_after} bytes "
-          f"of tensors after the algorithms' stop, {alloc_before} before")
-    check(mib_after <= mib_before + CARD_MIB_SLACK, f"the card's "
-          f"memory.used is {mib_after} MiB after the step, {mib_before} "
-          f"before")
+    out, back = {}, {}
+    for name, fn in (("ppo", lambda: rllib_ppo(dev, ppo_iters)),
+                     ("impala", lambda: rllib_impala(dev)),
+                     ("apex", lambda: rllib_apex(dev)),
+                     ("sac", lambda: rllib_sac(dev)),
+                     ("qmix", lambda: rllib_qmix(dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["wall_s"] = time.perf_counter() - t0
+        back[name] = card_back(dev, alloc_before, mib_before, name)
     free_card(on_card)
-    return {"ppo": ppo, "impala": impala, "alloc_bytes": [alloc_before,
-                                                          alloc_after],
-            "card_mib": [mib_before, mib_after]}
+    return {**out, "alloc_bytes_before": alloc_before,
+            "card_mib_before": mib_before, "after_stop": back}
 
 
 def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,

@@ -202,8 +202,18 @@ class Algorithm(Trainable):
         card."""
         out = {"CPU": 1.0 + config.get("num_rollout_workers", 0)
                * config.get("num_cpus_per_worker", 1)}
-        device = config.get("device")
-        if cls.learner_on_device and (
-                device is None or not str(device).startswith("cpu")):
-            out["GPU"] = float(config.get("num_learner_devices", 1) or 1)
+        if cls.learner_on_device:
+            out.update(learner_cards(config))
         return out
+
+
+def learner_cards(config: Dict[str, Any]) -> Dict[str, float]:
+    """``{"GPU": num_learner_devices}`` for a trial whose learner runs on
+    ``config["device"]``, or ``{}`` when that is the CPU.  The trial
+    runner calls ``default_resource_request`` with ``{}``: the default
+    device, a card.  Trainables outside ``Algorithm`` (MultiAgentPPO,
+    QMIX) add it to their own requests."""
+    device = config.get("device")
+    if device is not None and str(device).startswith("cpu"):
+        return {}
+    return {"GPU": float(config.get("num_learner_devices", 1) or 1)}

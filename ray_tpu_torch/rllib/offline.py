@@ -294,9 +294,7 @@ class CQL(Algorithm):
     push down out-of-distribution action values, push up the data's
     (reference: ``rllib/algorithms/cql/cql.py``; discrete form per the
     CQL(H) objective).  Reuses the DQN policy's network so the result
-    evaluates/acts exactly like a trained DQN; that policy comes with
-    RLlib part 2, and until then building CQL with its default
-    ``policy="dqn"`` raises the registry's ImportError.
+    evaluates/acts exactly like a trained DQN.
     """
 
     def setup(self, config: Dict[str, Any]) -> None:

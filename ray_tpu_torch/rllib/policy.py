@@ -36,12 +36,15 @@ from ray_tpu_torch.rllib.sample_batch import (
 Tree = Dict[str, Any]
 
 
-# -- params trees (dicts of tensors, leaves in sorted-key order like
-# jax.tree.leaves) ----------------------------------------------------------
+# -- params trees (dicts, lists and tuples of tensors, leaves in
+# jax.tree.leaves order: dict keys sorted, lists and tuples in index order;
+# an empty container has no leaves) ------------------------------------------
 
 def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
 
@@ -52,6 +55,8 @@ def tree_unflatten(like, leaves: Sequence[Any]):
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(n) for n in node)
         return next(it)
     return build(like)
 
@@ -60,11 +65,20 @@ def tree_map(fn: Callable, tree):
     return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
 
 
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shapes(v) for v in tree)
+    return tuple(tree.shape)
+
+
 def weights_from_jax(tree, device, like: Optional[Tree] = None) -> Tree:
-    """The JAX package's weight tree (numpy or jax arrays, f32) as f32
-    tensors on ``device``.  Checks that every leaf is a float32 array, that
-    each ``{"w", "b"}`` layer has ``b.shape == (w.shape[1],)``, and, when
-    ``like`` is given, that the keys and shapes are ``like``'s."""
+    """The JAX package's weight tree (numpy or jax arrays, f32; dicts,
+    lists and tuples) as f32 tensors on ``device``.  Checks that every
+    leaf is a float32 array (0-d included), that each ``{"w", "b"}`` layer
+    has ``b.shape == (w.shape[1],)``, and, when ``like`` is given, that
+    the structure and shapes are ``like``'s."""
     def check(node, path):
         if isinstance(node, dict):
             if "w" in node and "b" in node:
@@ -75,18 +89,17 @@ def weights_from_jax(tree, device, like: Optional[Tree] = None) -> Tree:
             for k, v in node.items():
                 check(v, f"{path}/{k}")
             return
+        if isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                check(v, f"{path}/{i}")
+            return
         dtype = getattr(node, "dtype", None)
         if dtype is None or np.dtype(str(dtype)) != np.float32:
             raise TypeError(f"{path}: leaf of dtype {dtype}, want float32")
     check(tree, "")
-    if like is not None:
-        def shapes(t):
-            if isinstance(t, dict):
-                return {k: shapes(v) for k, v in t.items()}
-            return tuple(t.shape)
-        if shapes(tree) != shapes(like):
-            raise ValueError(f"weights {shapes(tree)} do not match the "
-                             f"policy's {shapes(like)}")
+    if like is not None and _shapes(tree) != _shapes(like):
+        raise ValueError(f"weights {_shapes(tree)} do not match the "
+                         f"policy's {_shapes(like)}")
     dev = torch.device(device)
     return tree_map(lambda x: torch.as_tensor(np.array(x, np.float32),
                                               device=dev), tree)

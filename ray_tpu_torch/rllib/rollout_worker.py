@@ -22,24 +22,6 @@ from ray_tpu_torch.rllib.sample_batch import (
     SampleBatch, VALUE_TARGETS, VF_PREDS)
 
 
-def _part_two(module: str, cls: str):
-    """A policy of RLlib part 2 (the value-based, off-policy and
-    multi-agent family), imported lazily: until its module is ported the
-    import raises an ImportError that says so."""
-    import importlib
-    full = f"ray_tpu_torch.rllib.{module}"
-    try:
-        mod = importlib.import_module(full)
-    except ModuleNotFoundError as e:
-        if e.name != full:
-            raise
-        raise ImportError(
-            f"{cls} ({full}) belongs to RLlib part 2 (DQN, SAC, TD3, DDPG, "
-            f"multi-agent, QMIX, Ape-X), which ray_tpu_torch has not "
-            f"ported yet") from None
-    return getattr(mod, cls)
-
-
 def _resolve_policy_class(name: str):
     """Policy registry keyed by config['policy'] — resolved lazily so
     remote workers (fresh processes) don't need the algo module imported
@@ -47,7 +29,8 @@ def _resolve_policy_class(name: str):
     if name == "ppo":
         return PPOPolicy
     if name == "dqn":
-        return _part_two("dqn", "DQNPolicy")
+        from ray_tpu_torch.rllib.dqn import DQNPolicy
+        return DQNPolicy
     if name == "impala":
         from ray_tpu_torch.rllib.impala import ImpalaPolicy
         return ImpalaPolicy
@@ -55,7 +38,8 @@ def _resolve_policy_class(name: str):
         from ray_tpu_torch.rllib.appo import APPOPolicy
         return APPOPolicy
     if name == "sac":
-        return _part_two("sac", "SACPolicy")
+        from ray_tpu_torch.rllib.sac import SACPolicy
+        return SACPolicy
     if name == "recurrent_ppo":
         from ray_tpu_torch.rllib.recurrent import RecurrentPPOPolicy
         return RecurrentPPOPolicy
@@ -72,9 +56,11 @@ def _resolve_policy_class(name: str):
         from ray_tpu_torch.rllib.a2c import A2CPolicy
         return A2CPolicy
     if name == "td3":
-        return _part_two("td3", "TD3Policy")
+        from ray_tpu_torch.rllib.td3 import TD3Policy
+        return TD3Policy
     if name == "ddpg":
-        return _part_two("ddpg", "DDPGPolicy")
+        from ray_tpu_torch.rllib.ddpg import DDPGPolicy
+        return DDPGPolicy
     raise ValueError(f"unknown policy {name!r}")
 
 

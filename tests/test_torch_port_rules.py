@@ -73,7 +73,9 @@ def _port_files():
             "test_torch_rllib_pixel", "test_torch_rllib_policy_server",
             "test_torch_gym_compat", "test_torch_rllib_new_algos",
             "test_torch_rllib_dqn_impala", "test_torch_rllib_gpu_resources",
-            "test_torch_rllib_gpu")]
+            "test_torch_rllib_gpu", "test_torch_rllib_exploration",
+            "test_torch_rllib_multiagent_sac", "test_torch_rllib_qmix",
+            "test_torch_rllib_apex")]
     assert len(files) > 10
     return files
 
@@ -231,6 +233,7 @@ def test_entry_points_raise_without_a_card(no_card):
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
 
     cfg = GPTConfig.tiny(vocab=32, seq=16)
+    part_two = _part_two_configs()
     lcfg = LlamaConfig.tiny(vocab=32, seq=16)
     ppo = (PPOConfig().environment("CartPole-v1")
            .rollouts(num_rollout_workers=0, num_envs_per_worker=2,
@@ -258,9 +261,35 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: dryrun_multichip(2),
                  lambda: dryrun_pipeline(2),
                  lambda: PPOPolicy(4, Space("discrete", n=2), {}),
-                 lambda: ppo.build()):
+                 lambda: ppo.build(),
+                 *[c.build for c in part_two.values()]):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def _part_two_configs():
+    """RLlib part 2's entry points at a tiny size, device unset."""
+    from ray_tpu_torch.rllib import (ApexDQNConfig, DQNConfig,
+                                     MultiAgentPPOConfig, QMIXConfig,
+                                     SACConfig)
+    small = dict(learning_starts=16, train_batch_size=16, num_train_iters=2)
+    return {
+        "dqn": DQNConfig().environment("CartPole-v1").rollouts(
+            num_rollout_workers=0, num_envs_per_worker=2,
+            rollout_fragment_length=8).training(**small),
+        "sac": SACConfig().environment("Pendulum-v1").rollouts(
+            num_rollout_workers=0, num_envs_per_worker=2,
+            rollout_fragment_length=8).training(**small),
+        "apex": ApexDQNConfig().environment("CartPole-v1").rollouts(
+            num_rollout_workers=1, num_envs_per_worker=2,
+            rollout_fragment_length=8).training(num_replay_shards=1,
+                                                **small),
+        "multi_agent_ppo": MultiAgentPPOConfig().environment(
+            "CoordinationGame-v0").rollouts(num_envs_per_worker=2,
+                                            rollout_fragment_length=8),
+        "qmix": QMIXConfig().environment("TwoStepGame-v0").training(
+            learning_starts=16, train_batch_size=16),
+    }
 
 
 def test_entry_points_run_on_the_cpu_when_asked(no_card):
@@ -296,6 +325,22 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
             .resources(device="cpu").build())
     assert np.isfinite(algo.train()["learner_total_loss"])
     algo.stop()
+
+    import ray_tpu_torch
+    loss = {"dqn": lambda r: r["info"]["learner"]["loss"],
+            "sac": lambda r: r["critic_loss"],
+            "apex": lambda r: r["learner_loss"],
+            "multi_agent_ppo": lambda r: r["info"]["learner"]["default"][
+                "total_loss"],
+            "qmix": lambda r: r["loss"]}
+    ray_tpu_torch.init(num_cpus=4)     # Ape-X's workers and shards
+    try:
+        for name, c in _part_two_configs().items():
+            algo = c.resources(device="cpu").build()
+            assert np.isfinite(loss[name](algo.train())), name
+            algo.stop()
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_options_of_unported_modules_raise():

@@ -4,9 +4,9 @@ policies, the port's mirror of tests/test_rllib_offline_recurrent.py.
 Reference shape: rllib/offline/tests (JsonReader/Writer roundtrip, OPE
 estimators), rllib/algorithms/bc learning tests, and the RepeatAfterMe
 recurrent-policy learning test (rllib/BUILD).  The CQL learning case
-reads a dataset a DQN writes and waits for RLlib part 2.  The JAX
-package runs its learning cases in a hermetic CPU subprocess; here they
-run in the test's process, on the CPU (``device="cpu"``).
+reads a dataset a DQN writes.  The JAX package runs its learning cases
+in a hermetic CPU subprocess; here they run in the test's process, on
+the CPU (``device="cpu"``).
 """
 
 import numpy as np
@@ -138,6 +138,47 @@ def test_bc_learns_cartpole_from_ppo_dataset(tmp_path):
             break
     bc.cleanup()
     assert bc_best >= 150, f"BC failed to clone: {bc_best}"
+
+
+@pytest.mark.slow
+def test_cql_learns_cartpole_from_dqn_dataset(tmp_path):
+    """CQL trains a Q-function purely from logged DQN transitions
+    (mixed-quality data) to a usable CartPole policy."""
+    from ray_tpu_torch.rllib import CQLConfig, DQNConfig
+    ds = str(tmp_path / "dqn_data")
+    # 1. A DQN run logs every sampled transition batch as it learns.
+    algo = (DQNConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=8,
+                      rollout_fragment_length=4)
+            .training(learning_starts=500, train_batch_size=64,
+                      num_train_iters=8, target_network_update_freq=250,
+                      epsilon_timesteps=5000, lr=1e-3, output=ds)
+            .resources(device="cpu")
+            .debugging(seed=0).build())
+    best = 0.0
+    for i in range(1500):
+        r = algo.train()
+        best = max(best, r.get("episode_reward_mean", 0.0))
+        if best >= 150:
+            break
+    assert best >= 150, f"behavior DQN failed: {best}"
+    algo.cleanup()
+
+    # 2. CQL from the logged data only.
+    cql = (CQLConfig().environment("CartPole-v1")
+           .offline_data(input=ds)
+           .rollouts(num_envs_per_worker=8, rollout_fragment_length=128)
+           .training(train_batch_size=512, sgd_iters_per_step=32,
+                     cql_alpha=0.5, lr=5e-4)
+           .resources(device="cpu")
+           .debugging(seed=1).build())
+    cql_best = 0.0
+    for i in range(40):
+        r = cql.train()
+        cql_best = max(cql_best, r.get("episode_reward_mean", 0.0))
+        if cql_best >= 120:
+            break
+    assert cql_best >= 120, f"CQL failed: {cql_best}"
 
 
 @pytest.mark.slow

@@ -25,7 +25,10 @@ the port's params are the JAX init carried across by ``weights_from_jax``
   resets: within 1e-5;
 * a ``RolloutWorker`` of each package returns batches with the same keys,
   shapes and dtypes, and a ``PPO`` checkpoint of each restores in the
-  other.
+  other;
+* the policy registry resolves part 2's names (``dqn``, ``sac``, ``td3``,
+  ``ddpg``) to classes named as the JAX package's (part 2's updates:
+  ``test_torch_rllib_parity_offpolicy.py``).
 """
 
 import types
@@ -470,9 +473,8 @@ def test_ppo_checkpoints_cross(direction, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["dqn", "sac", "td3", "ddpg"])
-def test_part_two_policy_names_raise_until_ported(name):
-    """The JAX package resolves these; the port's registry names RLlib
-    part 2 instead of failing deeper in."""
-    assert jrw._resolve_policy_class(name).__name__.endswith("Policy")
-    with pytest.raises(ImportError, match="RLlib part 2"):
-        trw._resolve_policy_class(name)
+def test_part_two_policy_names_resolve(name):
+    """The port's registry resolves RLlib part 2's policy names to classes
+    named as the JAX package's."""
+    assert (trw._resolve_policy_class(name).__name__
+            == jrw._resolve_policy_class(name).__name__)

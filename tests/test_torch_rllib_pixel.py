@@ -1,5 +1,5 @@
-"""MinAtar-class pixel-env mechanics + PPO learning bars, the port's
-mirror of tests/test_rllib_pixel.py (its DQN case waits for RLlib part 2).
+"""MinAtar-class pixel-env mechanics + PPO and DQN learning bars, the
+port's mirror of tests/test_rllib_pixel.py.
 
 Reference shape: rllib's Atari learning tests (tuned_examples/ppo/) assert
 reward thresholds on pixel observations; these do the same on the
@@ -66,6 +66,28 @@ def test_ppo_learns_breakout_mini_from_pixels():
             break
     algo.stop()
     assert best >= 2.0, f"PPO pixels best={best} (random ~0.19)"
+
+
+@pytest.mark.slow
+def test_dqn_learns_breakout_mini_from_pixels():
+    from ray_tpu_torch.rllib.dqn import DQNConfig
+    algo = (DQNConfig().environment("BreakoutMini-v0")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=16,
+                      rollout_fragment_length=8)
+            .training(lr=3e-4, hiddens=(256, 128), train_batch_size=128,
+                      num_train_iters=16, epsilon_timesteps=60_000,
+                      target_network_update_freq=1000,
+                      buffer_size=100_000)
+            .resources(device="cpu")
+            .debugging(seed=0).build())
+    best = 0.0
+    for _ in range(400):
+        r = algo.train()
+        best = max(best, r.get("episode_reward_mean", 0.0))
+        if best >= 1.2:
+            break
+    algo.stop()
+    assert best >= 1.2, f"DQN pixels best={best} (random ~0.19)"
 
 
 @pytest.mark.slow
