@@ -132,16 +132,21 @@ Every phase prints one JSON line and any failure exits nonzero:
            timed training steps for the flash kernels, the autotune path
            for the splash kernels; the flash entries also each family's
            inference and training launches, MoE GPT's training and the
-           pipeline's two schedules and the serve replica's batched
-           forward among them), its error and its bf16
-           design ("wgmma+tma" or "mma.sync"); all but the flash forward's
-           entry also their achieved TFLOP/s and the share of their bound they
-           reach (the flash forward's under "train_call" and at the
-           inference call); the flash backward's library time is SDPA's
-           backward by device time, its event time beside it; the
-           flash forward is timed at the inference call [4,12,1024,64] and
-           at the training call [32,12,1024,64], each with the device time
-           of scaled_dot_product_attention's forward beside its event time
+           pipeline's two schedules, the serve replica's batched
+           forward and the cluster paths' actors among them), its error
+           and its bf16 design ("wgmma+tma" or "mma.sync"); all but the
+           flash forward's entry also their achieved TFLOP/s and the share
+           of their bound they reach (the flash forward's under
+           "train_call" and at the inference call); the flash backward's
+           library time is SDPA's backward by device time, its event time
+           beside it; the flash forward is timed at the inference call
+           [4,12,1024,64] and at the training call [32,12,1024,64], each
+           with the device time
+           of scaled_dot_product_attention's forward beside its event time;
+           a kernel's device time counts its events in the trace and, when
+           fewer than the calls' launches came back, is taken between CUDA
+           events instead (a profiler_miss line says so); a time under its
+           bound (share above MAX_BOUND_SHARE) fails the phase
 
   runtime  the port's runtime core on the card, after the other phases
            (cache emptied): the free size of /dev/shm (the phase fails
@@ -330,6 +335,39 @@ Every phase prints one JSON line and any failure exits nonzero:
            wait per batch, Ape-X's shard.sample round trip per update and
            harvest ms per train() call, QMIX's ms per episode (one greedy
            forward on the card a step) and each algorithm's wall time
+  runtime_cluster  the cluster layer and tools, after runtime_node_death
+           (every cluster shut down), each path running GPT-2-small's bf16
+           flash forward on [4, 1024] tokens from seed 0 in a num_gpus=1
+           GPTActor (weights from seed 0) whose logits must hash to the
+           in-process forward's and whose own launch counts must be
+           exactly 12 flash forward launches: (a) `python -m ray_tpu_torch
+           start --head` in a private RT_SESSION_DIR, whose `status`
+           shows GPU: 1 and an H100 accelerator_type; `job submit --wait`
+           of an entrypoint (this script's cluster_job_main) shipped in a
+           working_dir runtime env, which joins through RT_ADDRESS, must
+           see no card (torch.cuda.is_available() False) and gets the
+           logits on the CPU, its output the same through `job logs`; a
+           second job whose CardHolder actor holds 1 GiB of the card,
+           stopped with `job stop` (its SIGTERM handler kills the holder:
+           actors outlive their driver), status STOPPED; `list actors`
+           shows no live actor on the card; `stop` ends every daemon;
+           (b) a client proxy (util.client.start_proxy) on a head, and a
+           client in a separate process that sees no card
+           (cluster_client_main): connect, the actor through the session
+           (which must see CUDA_VISIBLE_DEVICES ""), its logits back as a
+           CPU tensor, then kill and disconnect(end_session=True): the
+           session process gone, the actor dead; (c) a cluster_utils
+           Cluster head with no card, a LocalNodeProvider and a Monitor
+           with one node type gpu1 = {CPU: 4, GPU: 1} (min 0, max 1, idle
+           timeout CLUSTER_IDLE_S): the queued actor makes it launch the
+           node, the actor answers there, and once it is killed the idle
+           node is ended; after each path the card's memory.used is back
+           within CARD_MIB_SLACK of its reading before the step; prints
+           the head start, job submit-to-running and end-to-end, client
+           connect and logits get, demand-to-launch, launch-to-first-
+           answer and idle-to-terminate times; (d) `python -m
+           ray_tpu_torch._private.microbenchmark --quick`, one line a
+           metric with the card beside it (host numbers: CPU workers)
   total    the script's seconds
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -767,12 +805,12 @@ PROFILER_SESSIONS = 3
 
 def profiled(fn, iters, activities, want=None):
     """``fn`` run ``iters`` times under torch.profiler (CUPTI); returns the
-    key averages of its CUDA kernels, each as (device us, name), and the
-    wall ms per call.  A session whose trace came back with no CUDA kernel
-    whose name holds ``want`` (no kernel at all when ``want`` is None) is
-    run again, up to PROFILER_SESSIONS sessions, since the profiler now and
-    then hands back a session without its device events; every such miss
-    is printed as a ``profiler_miss`` line."""
+    key averages of its CUDA kernels, each as (device us, name, events),
+    and the wall ms per call.  A session whose trace came back with no CUDA
+    kernel whose name holds ``want`` (no kernel at all when ``want`` is
+    None) is run again, up to PROFILER_SESSIONS sessions, since the
+    profiler now and then hands back a session without its device events;
+    every such miss is printed as a ``profiler_miss`` line."""
     import torch
     from torch.profiler import profile
     for session in range(PROFILER_SESSIONS):
@@ -782,10 +820,11 @@ def profiled(fn, iters, activities, want=None):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
-        kernels = [(e.self_device_time_total, e.key)
+        kernels = [(e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(us > 0 and (want is None or want in k) for us, k in kernels):
+        if any(us > 0 and (want is None or want in k)
+               for us, k, _ in kernels):
             return kernels, wall
         emit("profiler_miss", want=want, session=session + 1,
              of=PROFILER_SESSIONS, kernels_seen=len(kernels))
@@ -796,7 +835,7 @@ def kernel_breakdown(kernels, iters):
     """From ``profiled``'s (device us, name) over ``iters`` calls: (the
     kernels as (ms per call, name), largest first; their sum; the flash
     kernels' ms by name; ms by kind, ``KERNEL_CLASSES``)."""
-    kernels = sorted(((us / 1e3 / iters, k) for us, k in kernels),
+    kernels = sorted(((us / 1e3 / iters, k) for us, k, _ in kernels),
                      reverse=True)
     flash = {name: sum(ms for ms, k in kernels if name in k)
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -816,7 +855,7 @@ def profile_window(phase, fn, dev, iters=3, top=8):
     sync(dev)
     kernels, wall = profiled(fn, iters, [ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA])
-    if not any(us > 0 for us, _ in kernels):
+    if not any(us > 0 for us, _, _ in kernels):
         emit(phase, wall_ms_per_call=wall, device_trace="missing")
         return
     kernels, busy, flash, by_class = kernel_breakdown(kernels, iters)
@@ -1209,22 +1248,39 @@ def device_ms(fn, kernel, iters):
     ``kernel`` (every kernel the call launches when ``kernel`` is None),
     from torch.profiler (CUPTI) over ``iters`` calls: the kernels' own time
     even where the host cannot enqueue calls as fast as the card runs
-    them."""
+    them.  A named kernel's events are counted (every caller's ``fn``
+    launches it once): a trace that holds fewer than ``iters`` lost some,
+    and its sum over ``iters`` would read short."""
     import torch
     from torch.profiler import ProfilerActivity
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     kernels, _ = profiled(fn, iters, [ProfilerActivity.CUDA], kernel)
-    us = sum(t for t, k in kernels if kernel is None or kernel in k)
-    if us > 0:
+    hits = [(us, n) for us, k, n in kernels if kernel is None or kernel in k]
+    us, events = sum(us for us, _ in hits), sum(n for _, n in hits)
+    if us > 0 and (kernel is None or events == iters):
         return us / 1e3 / iters
-    # No session traced the kernel: its time between CUDA events instead,
-    # which holds the host's gaps between calls too, and says so.
+    # No session traced the kernel, or not every launch of it: its time
+    # between CUDA events instead, which holds the host's gaps between
+    # calls too, and says so.
     ms = time_ms(fn, iters)
     emit("profiler_miss", want=kernel, timed_by="cuda_events", ms=ms,
-         kernels_seen=sorted({k[:60] for _, k in kernels}))
+         events=events, expected_events=iters,
+         profiler_ms=us / 1e3 / iters,
+         kernels_seen=sorted({k[:60] for _, k, _ in kernels}))
     return ms
+
+
+# A kernel time under its bound is a miscount (of the time or of the
+# bound), not a fast kernel; 5% covers clocks above the peak rate's.
+MAX_BOUND_SHARE = 1.05
+
+
+def check_bound_share(name, shape, bound_ms, ms):
+    check(bound_ms / ms <= MAX_BOUND_SHARE,
+          f"{name} at {shape} read {ms * 1e3:.2f} us against its "
+          f"{bound_ms * 1e3:.2f} us bound: the card cannot beat its bound")
 
 
 def flash_bound_ms(B, N, S, H, dtype, causal, kind="fwd"):
@@ -1266,6 +1322,7 @@ def phase_kernel_times(dev, B, N, S, H):
     # mma.sync one (flash_fwd_mma_kernel), whichever this call launches
     kernel = device_ms(call, "flash_fwd_", 50)
     bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True)
+    check_bound_share("flash_fwd", [B, N, S, H], bound, kernel)
     flop = FLASH_WORK["fwd"][2] * 2 * H * S * (S + 1) // 2 * B * N
     return {"shape": [B, N, S, H], "ms": kernel,
             "event_ms": time_ms(call, 50),
@@ -1325,6 +1382,7 @@ def phase_kernel_bwd_times(dev, B, N, S, H):
         bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True, kind)
         flop = FLASH_WORK[kind][2] * 2 * H * S * (S + 1) // 2 * B * N
         ms = out[kind]["ms"]
+        check_bound_share(f"flash_bwd_{kind}", [B, N, S, H], bound, ms)
         out[kind].update(library_ms=fwd_bwd_dev - fwd_dev,
                          library_event_ms=fwd_bwd - fwd, bound_ms=bound,
                          bound_by=bound_by,
@@ -1600,6 +1658,7 @@ def phase_splash_kernel_times(dev):
     for kind, (fn, kernel, plain) in calls.items():
         bound, bound_by = splash_bound_ms(kind, B, N, S, H, pairs)
         ms = device_ms(fn, kernel, 20)
+        check_bound_share(kernel, list(SPLASH_SHAPE), bound, ms)
         out[kind] = {"ms": ms, "event_ms": time_ms(fn, 20),
                      "plain_ms": time_ms(plain, 2),
                      "bound_ms": bound, "bound_by": bound_by,
@@ -4098,6 +4157,467 @@ def runtime_rllib(dev, ppo_iters=RLLIB_PPO_ITERS) -> dict:
             "card_mib_before": mib_before, "after_stop": back}
 
 
+# ---------------------------------------------------------- runtime_cluster
+
+# The cluster layer's paths each run GPT-2-small's bf16 flash forward on
+# [4, 1024] tokens in a num_gpus=1 actor; the autoscaler ends its idle GPU
+# node after CLUSTER_IDLE_S.
+CLUSTER_TOKENS = (4, 1024)
+CLUSTER_IDLE_S = 10.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def cluster_config():
+    """GPT-2-small, bf16, flash: the configuration of every cluster path
+    (the job's entrypoint and the client build it themselves)."""
+    import torch
+    from ray_tpu_torch.models import GPTConfig
+    return dataclasses.replace(GPTConfig.gpt2_small(), dtype=torch.bfloat16,
+                               attention="flash")
+
+
+def cluster_tokens(cfg):
+    """The paths' [4, 1024] tokens, from seed 0."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randint(0, cfg.vocab_size, CLUSTER_TOKENS, generator=gen)
+
+
+def cluster_inputs(cfg):
+    """GPT-2-small's f32 params as numpy (as the runtime phase makes them)
+    and the paths' tokens, from seed 0."""
+    from ray_tpu_torch.models import gpt_init, params_to_numpy
+    return (params_to_numpy(gpt_init(SEED, cfg, device="cpu")),
+            cluster_tokens(cfg))
+
+
+def drive_gpt_actor(actor, get, tokens) -> dict:
+    """A GPTActor's first answer, one forward and its logits, through
+    ``get`` (the runtime's or a client's); the logits by hash."""
+    t0 = time.perf_counter()
+    info = get(actor.info.remote())
+    first_answer_s = time.perf_counter() - t0
+    fwd = get(actor.forward.remote(tokens, timed=0))
+    t0 = time.perf_counter()
+    logits = get(actor.get_logits.remote())
+    get_ms = (time.perf_counter() - t0) * 1e3
+    return {"first_answer_s": first_answer_s,
+            "actor_visible": info["cuda_visible_devices"],
+            "actor_node_id": info["node_id"],
+            "actor_import_torch_s": info["import_torch_s"],
+            "actor_cuda_init_s": info["cuda_init_s"],
+            "actor_params_s": info["params_s"],
+            "launches": list(fwd["launches"]), "forward_ms": fwd["ms_total"],
+            "logits_sha256": tensor_sha256(logits),
+            "logits_device": logits.device.type,
+            "logits_shape": list(logits.shape),
+            "logits_dtype": str(logits.dtype).removeprefix("torch."),
+            "get_logits_ms": get_ms}
+
+
+class CardHolder:
+    """A num_gpus=1 actor that holds 1 GiB of its card."""
+
+    def hold(self, nbytes=1 << 30) -> float:
+        import torch
+        self.block = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved() / 2**20
+
+
+def cluster_job_main(hold: bool) -> int:
+    """A job's entrypoint (runtime_cluster, path a).  It joins the cluster
+    through RT_ADDRESS and must see no card itself; it then drives a
+    GPTActor's forward and prints one CLUSTER_JOB line, or, with ``hold``,
+    keeps a CardHolder until SIGTERM, which kills the holder (actors
+    outlive their driver) and exits."""
+    started = time.time()
+    import signal
+
+    import torch
+
+    import ray_tpu_torch as rt
+    rt.init()
+    out = {"started_at": started,
+           "cuda_available": torch.cuda.is_available(),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    check(not out["cuda_available"],
+          f"the job's entrypoint sees a card (CUDA_VISIBLE_DEVICES="
+          f"{out['cuda_visible_devices']!r})")
+    if hold:
+        holder = rt.remote(CardHolder).options(num_gpus=1).remote()
+        out["holder_reserved_mib"] = rt.get(holder.hold.remote(),
+                                            timeout=600)
+
+        def stop(*_):
+            rt.kill(holder)
+            print("CLUSTER_JOB_RELEASED", flush=True)
+            sys.exit(0)
+
+        signal.signal(signal.SIGTERM, stop)
+        print("CLUSTER_JOB_HOLDING " + json.dumps(out), flush=True)
+        while True:
+            time.sleep(1)
+    cfg = cluster_config()
+    tree, tokens = cluster_inputs(cfg)
+    actor = rt.remote(GPTActor).options(num_gpus=1).remote(
+        rt.put(tree), gpt_fields(cfg))
+    out.update(drive_gpt_actor(actor, lambda r: rt.get(r, timeout=600),
+                               tokens))
+    rt.kill(actor)
+    print("CLUSTER_JOB " + json.dumps(out), flush=True)
+    return 0
+
+
+def cluster_client_main(address: str) -> int:
+    """The Ray Client of runtime_cluster (path b), a process with no card:
+    connect to the proxy, create a num_gpus=1 GPTActor through the
+    session, get its logits (a CPU tensor), kill it and end the session;
+    prints one CLUSTER_CLIENT line."""
+    import torch
+    from ray_tpu_torch.util.client import connect
+    check(not torch.cuda.is_available(), "the client process sees a card")
+    cfg = cluster_config()
+    tree, tokens = cluster_inputs(cfg)
+    t0 = time.perf_counter()
+    c = connect(address, timeout=600)
+    out = {"connect_s": time.perf_counter() - t0,
+           "session_pid": c.ping()["pid"]}
+    out["session_visible"] = process_visible_devices(out["session_pid"])
+    t0 = time.perf_counter()
+    tree_ref = c.put(tree)
+    out["put_params_s"] = time.perf_counter() - t0
+    actor = c.remote(num_gpus=1)(GPTActor).remote(tree_ref, gpt_fields(cfg))
+    out.update(drive_gpt_actor(actor, c.get, tokens))
+    c.kill(actor)
+    t0 = time.perf_counter()
+    c.disconnect(end_session=True)
+    out["disconnect_s"] = time.perf_counter() - t0
+    print("CLUSTER_CLIENT " + json.dumps(out), flush=True)
+    return 0
+
+
+def tagged_line(text: str, tag: str) -> dict:
+    """The JSON of the one line of ``text`` that starts with ``tag``."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    check(len(lines) == 1, f"{len(lines)} {tag} lines in:\n{text[-3000:]}")
+    return json.loads(lines[0][len(tag) + 1:])
+
+
+def card_back_within(mib_before, after, timeout=60) -> int:
+    """Wait until the card's memory.used is back within CARD_MIB_SLACK of
+    ``mib_before``; returns the reading."""
+    deadline = time.monotonic() + timeout
+    while True:
+        mib = card_used_mib()
+        if mib <= mib_before + CARD_MIB_SLACK:
+            return mib
+        check(time.monotonic() < deadline, f"the card's memory.used is "
+              f"{mib} MiB after {after}, {mib_before} before")
+        time.sleep(0.2)
+
+
+def check_gpt_path(name, res, want, cfg):
+    """A path's GPTActor: logits (by hash, shape and dtype) the in-process
+    forward's ``want``, 12 flash forward launches, the card named 0."""
+    got = {k: res[k] for k in want}
+    check(got == want, f"{name}: the actor's logits {got} differ from the "
+          f"in-process forward's {want}")
+    check(res["launches"] == [cfg.num_layers, 0, 0, 0, 0, 0],
+          f"{name}: the actor launched {res['launches']}")
+    check(res["actor_visible"] == "0",
+          f"{name}: the actor saw CUDA_VISIBLE_DEVICES="
+          f"{res['actor_visible']!r}")
+
+
+def cluster_cli_and_jobs(cfg, want, mib_before) -> dict:
+    """Path (a): a CLI-started head, a GPT job, a card-holding job stopped
+    with ``job stop``, ``list actors`` and ``stop``."""
+    import ray_tpu_torch as rt
+    sess_dir = tempfile.mkdtemp(prefix="rtt_chip_cli_")
+    env = {**os.environ, "RT_SESSION_DIR": sess_dir}
+
+    def cli(*argv, timeout=600):
+        r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *argv],
+                           env=env, cwd=ROOT, capture_output=True, text=True,
+                           timeout=timeout)
+        check(r.returncode == 0, f"`{' '.join(argv)}` exited "
+              f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        return r.stdout
+
+    wd = tempfile.mkdtemp(prefix="rtt_chip_job_")
+    with open(os.path.join(wd, "entry.py"), "w") as f:
+        f.write(f"import sys\nsys.path.insert(0, {ROOT!r})\n"
+                f"import chip_smoke\n"
+                f"sys.exit(chip_smoke.cluster_job_main("
+                f"'--hold' in sys.argv))\n")
+    renv = json.dumps({"working_dir": wd})
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        cli("start", "--head", "--port", "0", "--num-cpus", "4",
+            "--object-store-memory", str(RUNTIME_STORE_BYTES))
+        out["head_start_s"] = time.perf_counter() - t0
+        with open(os.path.join(sess_dir, "cluster.json")) as f:
+            session = json.load(f)
+        total = json.loads(cli("status"))["resources"]["total"]
+        types = [k for k in total if k.startswith("accelerator_type:")]
+        check(total.get("GPU") == 1.0 and len(types) == 1 and
+              "H100" in types[0], f"the CLI head advertises {total}")
+        out["status_resources"] = total
+        rt.init(address=session["gcs_address"])
+        try:
+            t0 = time.time()
+            res = cli("job", "submit", "--wait", "--runtime-env-json", renv,
+                      "--", sys.executable, "entry.py")
+            out["job_end_to_end_s"] = time.time() - t0
+            sid = re.search(r"submitted: (\S+)", res).group(1)
+            job = tagged_line(res, "CLUSTER_JOB")
+            check(job["cuda_visible_devices"] == "" and
+                  not job["cuda_available"],
+                  f"the job's entrypoint saw {job['cuda_visible_devices']!r}")
+            check_gpt_path("job", job, want, cfg)
+            check(job["logits_device"] == "cpu",
+                  "the entrypoint got its logits on a card")
+            check(tagged_line(cli("job", "logs", sid), "CLUSTER_JOB") == job,
+                  "`job logs` does not give the job's output")
+            out["job_submit_to_running_s"] = job.pop("started_at") - t0
+            out["job"] = job
+            free_card(True)
+            out["mib_after_job"] = card_back_within(mib_before, "the job")
+
+            res = cli("job", "submit", "--runtime-env-json", renv, "--",
+                      sys.executable, "entry.py", "--hold")
+            sid2 = re.search(r"submitted: (\S+)", res).group(1)
+            deadline = time.monotonic() + 600
+            while "CLUSTER_JOB_HOLDING" not in (logs := cli("job", "logs",
+                                                            sid2)):
+                check(time.monotonic() < deadline,
+                      f"the holding job never held the card:\n{logs}")
+                time.sleep(0.5)
+            held = tagged_line(logs, "CLUSTER_JOB_HOLDING")
+            out["held_mib"] = card_used_mib()
+            check(out["held_mib"] >= mib_before + 1024 and
+                  rt.available_resources().get("GPU", 0) == 0,
+                  f"the holding job's card: memory.used {out['held_mib']} "
+                  f"MiB (before {mib_before}), GPU "
+                  f"{rt.available_resources().get('GPU')}")
+            t0 = time.perf_counter()
+            cli("job", "stop", sid2)
+            while (status := cli("job", "status", sid2).strip()) not in (
+                    "STOPPED", "SUCCEEDED", "FAILED"):
+                time.sleep(0.2)
+            check(status == "STOPPED", f"the stopped job is {status}")
+            check("CLUSTER_JOB_RELEASED" in cli("job", "logs", sid2),
+                  "the stopped job never released its holder")
+            free_card(True)
+            out["mib_after_job_stop"] = card_back_within(
+                mib_before, "job stop")
+            out["job_stop_to_card_back_s"] = time.perf_counter() - t0
+            out["holder_reserved_mib"] = held["holder_reserved_mib"]
+            actors = json.loads(cli("list", "actors"))
+            out["actors_listed"] = len(actors)
+            on_card = [a for a in actors if a["state"] == "ALIVE"
+                       and (a.get("resources") or {}).get("GPU")]
+            check(on_card == [], f"live actors hold the card: {on_card}")
+        finally:
+            rt.shutdown()
+    finally:
+        stopped = cli("stop")
+    pids = [n["pid"] for n in session["nodes"]]
+    deadline = time.monotonic() + 60
+    while not all(process_gone(p) for p in pids):
+        check(time.monotonic() < deadline, f"`stop` left daemons {pids}: "
+              f"{stopped}")
+        time.sleep(0.2)
+    out["mib_after_stop"] = card_back_within(mib_before, "stop")
+    out["stopped_daemon_pids"] = pids
+    for path in (sess_dir, wd):
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def cluster_client(cfg, want, mib_before) -> dict:
+    """Path (b): a proxy on a head, a client in a card-less process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.client import start_proxy
+    info = rt.init(num_cpus=4, object_store_memory=RUNTIME_STORE_BYTES)
+    try:
+        proxy, address = start_proxy(info["gcs_address"])
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.cluster_client_main(sys.argv[1]))", address],
+            cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"the client exited {r.returncode}:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        res = tagged_line(r.stdout, "CLUSTER_CLIENT")
+        check_gpt_path("client", res, want, cfg)
+        check(res["logits_device"] == "cpu",
+              f"the client got its logits on {res['logits_device']}")
+        check(res["session_visible"] == "", f"the client's session saw "
+              f"CUDA_VISIBLE_DEVICES={res['session_visible']!r}")
+        deadline = time.monotonic() + 60
+        while not process_gone(res["session_pid"]) or proxy.sessions:
+            check(time.monotonic() < deadline, "the session outlived "
+                  f"end_session: {proxy.sessions}")
+            time.sleep(0.2)
+        actors = [a for a in state.list_actors()
+                  if (a.get("resources") or {}).get("GPU")]
+        check(len(actors) == 1 and actors[0]["state"] == "DEAD",
+              f"the client's actor lives on: {actors}")
+        free_card(True)
+        res["mib_after_disconnect"] = card_back_within(mib_before,
+                                                       "disconnect")
+        res["client_process_s"] = wall
+    finally:
+        rt.shutdown()
+    return res
+
+
+def process_visible_devices(pid):
+    """CUDA_VISIBLE_DEVICES of a live process of this machine (None when
+    unset)."""
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                   if b"=" in kv)
+    value = env.get(b"CUDA_VISIBLE_DEVICES")
+    return None if value is None else value.decode()
+
+
+class _StoreSizedNodes:
+    """A cluster_utils.Cluster whose added nodes get the runtime phase's
+    store size (the actor's 498 MB of params land in its node's store)."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+
+    def add_node(self, **kwargs):
+        return self.cluster.add_node(object_store_memory=RUNTIME_STORE_BYTES,
+                                     **kwargs)
+
+    def remove_node(self, node):
+        self.cluster.remove_node(node)
+
+
+def cluster_autoscaler(dev, cfg, tree, tokens, want, mib_before) -> dict:
+    """Path (c): a card-less head, a LocalNodeProvider and a Monitor with
+    one GPU node type; a queued num_gpus=1 GPTActor scales it up, and its
+    idle node is ended once the actor is killed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig,
+                                          LocalNodeProvider, Monitor,
+                                          NodeTypeConfig)
+    from ray_tpu_torch.cluster_utils import Cluster
+    cluster = Cluster(head_node_args={
+        "num_cpus": 2, "object_store_memory": RUNTIME_STORE_BYTES,
+        "env": {"RT_NODE_RECONNECT_GRACE_S": str(NODE_DEATH_GRACE_S)}})
+    monitor = None
+    out = {"idle_timeout_s": CLUSTER_IDLE_S}
+    try:
+        rt.init(address=cluster.address)
+        check(rt.cluster_resources().get("GPU", 0) == 0,
+              f"the head advertises a card: {rt.cluster_resources()}")
+        provider = LocalNodeProvider(_StoreSizedNodes(cluster))
+        gpu1 = NodeTypeConfig("gpu1", {"CPU": 4.0, "GPU": 1.0},
+                              min_workers=0, max_workers=1)
+        monitor = Monitor(provider, AutoscalerConfig(
+            node_types=[gpu1], idle_timeout_s=CLUSTER_IDLE_S),
+            update_interval_s=0.5).start()
+        tree_ref = rt.put(tree)
+        t0 = time.perf_counter()
+        actor = rt.remote(GPTActor).options(num_gpus=1).remote(
+            tree_ref, gpt_fields(cfg))
+        deadline = time.monotonic() + 300
+        while not provider.non_terminated_nodes():
+            check(time.monotonic() < deadline, "no GPU node was launched")
+            time.sleep(0.05)
+        launched = time.perf_counter()
+        out["demand_to_launch_s"] = launched - t0
+        nodes = provider.non_terminated_nodes()
+        res = drive_gpt_actor(actor, lambda r: rt.get(r, timeout=600),
+                              tokens)
+        # the actor's first call starts as the node is seen
+        out["launch_to_first_answer_s"] = res["first_answer_s"]
+        check_gpt_path("autoscaler", res, want, cfg)
+        check(res["actor_node_id"] != cluster.head_node.node_id and
+              [n.node_type for n in nodes] == ["gpu1"],
+              f"the actor runs on {res['actor_node_id']}, nodes {nodes}")
+        out.update(res)
+        rt.kill(actor)
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 300
+        while provider.non_terminated_nodes():
+            check(time.monotonic() < deadline, "the idle GPU node lives on")
+            time.sleep(0.1)
+        out["idle_to_terminate_s"] = time.perf_counter() - t0
+        # this driver sees the card, so the logits came back onto it
+        empty_cache(dev)
+        out["mib_after_terminate"] = card_back_within(mib_before,
+                                                      "the node's end")
+    finally:
+        if monitor:
+            monitor.stop()
+        rt.shutdown()
+        cluster.shutdown()
+    return out
+
+
+def cluster_microbenchmark(smi) -> list:
+    """Path (d): the runtime's microbenchmark (--quick) on the card's
+    host: host numbers (a local cluster of CPU workers), printed each
+    with the card beside it."""
+    r = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch._private.microbenchmark",
+         "--quick"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the microbenchmark exited {r.returncode}:\n"
+          f"{r.stderr[-3000:]}")
+    recs = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    check(len(recs) == 7 and all(m["value"] > 0 for m in recs),
+          f"the microbenchmark printed {recs}")
+    for rec in recs:
+        emit("microbenchmark", card=smi,
+             measured_on="the card's host CPU (no card used)", **rec)
+    return recs
+
+
+def runtime_cluster(dev, cfg, tree, smi) -> dict:
+    """The cluster layer on the card (see the module docstring), with
+    ``tree`` GPT-2-small's params as the runtime phase made them; returns
+    the step's numbers and the paths' flash launches."""
+    check(cfg == cluster_config(), "runtime_cluster's configuration "
+          "differs from the one its job and client build")
+    tokens = cluster_tokens(cfg)
+    logits, fwd_ms, _ = in_process_forward(dev, cfg, tree, tokens, timed=1)
+    want = {"logits_sha256": tensor_sha256(logits),
+            "logits_shape": list(logits.shape),
+            "logits_dtype": str(logits.dtype).removeprefix("torch.")}
+    del logits
+    empty_cache(dev)
+    mib_before = card_used_mib()
+    out = {"tokens": list(CLUSTER_TOKENS), "in_process_forward_ms": fwd_ms,
+           "in_process": want, "card_mib_before": mib_before}
+    for name, fn in (
+            ("cli", lambda: cluster_cli_and_jobs(cfg, want, mib_before)),
+            ("client", lambda: cluster_client(cfg, want, mib_before)),
+            ("autoscaler", lambda: cluster_autoscaler(
+                dev, cfg, tree, tokens, want, mib_before))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["microbenchmark"] = cluster_microbenchmark(smi)
+    out["microbenchmark_s"] = time.perf_counter() - t0
+    out["launches"] = [sum(x) for x in zip(
+        out["cli"]["job"]["launches"], out["client"]["launches"],
+        out["autoscaler"]["launches"])]
+    return out
+
+
 def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
                   train_ms=None):
     """The runtime core on the card (see the module docstring).
@@ -4165,6 +4685,11 @@ def phase_runtime(dev, cfg, limit, smi, serve_phase=None, train_cfg=None,
     death = runtime_node_death(dev, cfg, tree, tokens)
     emit("runtime_node_death", card=smi,
          step_s=time.perf_counter() - t0, **death)
+    t0 = time.perf_counter()
+    cluster = runtime_cluster(dev, cfg, tree, smi)
+    emit("runtime_cluster", card=smi, step_s=time.perf_counter() - t0,
+         **cluster)
+    out["cluster_launches"] = cluster["launches"]
     out["actor_launches"] = tuple(a + b for a, b in zip(
         out["actor_launches"], death["actor_launches"]))
     out["serve_launches"] = serve_out["flash_launches"]
@@ -4849,13 +5374,14 @@ def run() -> int:
          moe_train["launches"][0] + pipe_launches[0] +
          runtime["actor_launches"][0] + runtime["serve_launches"][0] +
          runtime["train_launches"][0] + runtime["data_launches"][0] +
-         runtime["tune_launches"][0],
+         runtime["tune_launches"][0] + runtime["cluster_launches"][0],
          "launches_inference": infer_launches[0],
          "launches_runtime": runtime["actor_launches"][0],
          "launches_serve": runtime["serve_launches"][0],
          "launches_runtime_train": runtime["train_launches"][0],
          "launches_runtime_data": runtime["data_launches"][0],
          "launches_runtime_tune": runtime["tune_launches"][0],
+         "launches_runtime_cluster": runtime["cluster_launches"][0],
          "launches_train": train["launches"][0],
          "launches_llama_inference": llama_infer[0],
          "launches_llama_train": llama_train["launches"][0],

@@ -8,3 +8,4 @@ from ray_tpu_torch.util.scheduling_strategies import (  # noqa: F401
     PlacementGroupSchedulingStrategy,
 )
 from ray_tpu_torch.util.object_broadcast import broadcast  # noqa: F401
+from ray_tpu_torch.util import rpdb  # noqa: F401  (ray.util.rpdb analog)

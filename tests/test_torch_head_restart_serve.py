@@ -8,41 +8,48 @@ when the node re-registers -> the controller's _maybe_restore loads its
 KV state (snapshot-durable) -> reconcile finds the old replicas dead and
 replaces them -> requests serve again.
 
-The port's runtime under ``test_head_restart_serve.py``'s case.  The port
-has no CLI yet (ROADMAP A8), so the head is a ``cluster_utils.Cluster``
-head daemon with a GCS snapshot path, killed with SIGKILL and started
-again on the same snapshot; the drivers are separate processes, as the
-reference's are.
+The port's runtime under ``test_head_restart_serve.py``'s case: the head
+is started and stopped through the port's CLI (``python -m ray_tpu_torch
+start/stop``, a private ``RT_SESSION_DIR``), killed with SIGKILL and
+started again on the session's GCS snapshot; the drivers are separate
+processes, as the reference's are.
 """
 
+import json
 import os
+import signal
 import subprocess
 import sys
 import time
 
 import pytest
 
-from ray_tpu_torch.cluster_utils import Cluster
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.slow
 def test_serve_survives_head_crash(tmp_path):
-    snap = tmp_path / "gcs_snapshot.json"
-    env = {**os.environ, "PYTHONPATH": ROOT}
-    cluster = Cluster(head_node_args={"num_cpus": 4,
-                                      "gcs_persist_path": str(snap),
-                                      "env": env})
+    env = {**os.environ, "PYTHONPATH": ROOT,
+           "RT_SESSION_DIR": str(tmp_path / "session")}
+
+    def cli(*args, timeout=120):
+        r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                           env=env, capture_output=True, text=True,
+                           timeout=timeout)
+        assert r.returncode == 0, r.stdout + r.stderr
+        return r.stdout
 
     def run_driver(script, timeout=240):
-        # Target the cluster explicitly: init() without an address would
-        # bootstrap a private in-process cluster.
-        denv = {**env, "RT_ADDRESS": cluster.gcs_address}
+        # Target the CLI daemon cluster explicitly: init() without an
+        # address would bootstrap a private in-process cluster.
+        sess = json.loads(
+            (tmp_path / "session" / "cluster.json").read_text())
+        denv = {**env, "RT_ADDRESS": sess["gcs_address"]}
         return subprocess.run([sys.executable, "-c", script], env=denv,
                               capture_output=True, text=True,
                               timeout=timeout)
 
+    cli("start", "--head", "--port", "0")
     try:
         r = run_driver("""
 import ray_tpu_torch
@@ -62,6 +69,7 @@ print("DEPLOYED_OK")
         # Wait for the GCS snapshot to flush the serve state (period
         # 1s): the durability contract is crash-AFTER-flush recovers;
         # a crash inside the final snapshot window may lose that second.
+        snap = tmp_path / "session" / "gcs_snapshot.json"
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline and not snap.exists():
             time.sleep(0.2)
@@ -69,8 +77,18 @@ print("DEPLOYED_OK")
         time.sleep(2.0)   # one more period: serve KV state included
 
         # Crash the head daemon (SIGKILL: no graceful teardown, snapshot
-        # stays on disk) and start it again on the same snapshot.
-        cluster.restart_head()
+        # stays on disk).
+        sess = json.loads(
+            (tmp_path / "session" / "cluster.json").read_text())
+        for node in sess["nodes"]:
+            os.kill(node["pid"], signal.SIGKILL)
+        time.sleep(1.0)
+        # A clean session file so `start --head` records the new node; the
+        # GCS snapshot file survives (crash semantics).
+        (tmp_path / "session" / "cluster.json").write_text(
+            json.dumps({"nodes": []}))
+
+        cli("start", "--head", "--port", "0")
 
         r = run_driver("""
 import time
@@ -93,4 +111,5 @@ else:
 """)
         assert "RECOVERED_OK" in r.stdout, r.stdout + r.stderr
     finally:
-        cluster.shutdown()
+        subprocess.run([sys.executable, "-m", "ray_tpu_torch", "stop"],
+                       env=env, capture_output=True, timeout=60)

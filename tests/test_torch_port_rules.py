@@ -7,7 +7,8 @@
 * The port's runtime (``ray_tpu_torch/_private``) and the layers the
   cluster's workers run on it (``dag``, ``runtime_env``, ``workflow``,
   ``dashboard``, ``serve``, ``air``, ``train``, ``data``, ``tune``,
-  ``rllib``) are clean under ``ray_tpu``'s own linter, rtlint.
+  ``rllib``, ``job``, ``autoscaler``, ``scripts``) are clean under
+  ``ray_tpu``'s own linter, rtlint.
 * The port never falls back quietly from the card to the CPU or from a
   kernel to its plain version: entry points raise without a card unless
   given ``device="cpu"``, and the kernel and model modules catch nothing.
@@ -75,7 +76,12 @@ def _port_files():
             "test_torch_rllib_dqn_impala", "test_torch_rllib_gpu_resources",
             "test_torch_rllib_gpu", "test_torch_rllib_exploration",
             "test_torch_rllib_multiagent_sac", "test_torch_rllib_qmix",
-            "test_torch_rllib_apex")]
+            "test_torch_rllib_apex", "test_torch_job_cli",
+            "test_torch_autoscaler", "test_torch_gpu_vm_provider",
+            "test_torch_ray_client", "test_torch_client_proxy",
+            "test_torch_scale_bench", "test_torch_rpdb",
+            "test_torch_util_mp_serialize", "test_torch_dask_shim",
+            "test_torch_cluster_gpu_resources", "test_torch_cluster_gpu")]
     assert len(files) > 10
     return files
 
@@ -141,7 +147,7 @@ def test_string_check_sees_a_launch_string():
 # the controller, the ingress, train workers, rollout workers), so they
 # keep the core's rules.
 LAYERS = ("dag", "runtime_env", "workflow", "dashboard", "serve", "air",
-          "train", "data", "tune", "rllib")
+          "train", "data", "tune", "rllib", "job", "autoscaler", "scripts")
 
 
 def test_port_runtime_is_rtlint_clean():
@@ -156,8 +162,8 @@ def test_port_runtime_is_rtlint_clean():
 
 def test_runtime_layers_are_held_to_the_import_and_string_rules():
     """Every module of dag, runtime_env, workflow, dashboard, serve, air,
-    train, data, tune and rllib is among the files the two checks above
-    read, and none
+    train, data, tune, rllib, job, autoscaler and scripts is among the
+    files the two checks above read, and none
     imports JAX or ``ray_tpu`` or names a ``ray_tpu.`` module in a
     string."""
     checked = set(_port_files())
