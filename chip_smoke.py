@@ -29,6 +29,22 @@ Every phase prints one JSON line and any failure exits nonzero:
            backward run in f32 on the same seeded q, k, v, dO, over the
            same cases (dO contiguous): max |err| <= tol x max |ref| per
            tensor
+  flash_tiles  the flash kernels at every admitted (block_q, block_k) pair
+           ({64, 128}^2 in bf16 at head dims 64 and 128): o, lse, dq, dk
+           and dv against the plain versions in f32 at the kernel limits
+           on the bf16 kernel cases and a ragged S of 1000, each pair's
+           per-tile launch counter rising by exactly its calls; each
+           pair's device time at [4,12,1024,64] (forward), [32,12,1024,64]
+           and [2,32,4096,128] (forward, dq, dk/dv) beside its bound and
+           SDPA's; tune_flash_blocks at [4,12,1024,64] and [32,12,1024,64]
+           under a scratch cache file, after which GPT-2-small's bf16
+           flash forward at [4, 1024] launches the first winner 12 times
+           (top-1 as the forward phase holds it) and a training step's
+           loss and grads at [32, 1024] launch the second 24/12/12 times
+           (grads held as train_check holds them, on that batch); the
+           scratch cache goes with the phase, and at the end of the run
+           the launches outside it and the autotune phase are checked to
+           be the default tiles only (flash_tiles_untuned)
   forward  GPT-2-small [4, 1024], attention="flash": f32 logits against
            the dense forward; bf16 top-1 against the f32 forward, as close
            as the dense bf16 forward's; exactly 12 kernel launches per
@@ -257,7 +273,11 @@ Every phase prints one JSON line and any failure exits nonzero:
            ms/step (median of steps 2-16) beside runtime_train's steps
            with no checkpoint write in flight, the ingest wait per step,
            the host-to-device bytes and GB/s, the shuffle's seconds and
-           the worker's cold start
+           the worker's cold start; then a lease_waits line: every lease
+           that waited past lease_wait_log_s (10 s) on this cluster so
+           far, each with the holders of the node's resources (leased
+           workers with their task and its phase, args or running, and
+           actors), from the raylets' node stats (ROADMAP C12)
   runtime_tune  tune on the same cluster, after runtime_data: Tuner over
            a TorchTrainer with one num_gpus=1 worker training GPT-2-small
            at phase_train's settings (weights from seed 0, step k's
@@ -579,6 +599,21 @@ REDESIGNED = [("splash_attention.cu", "splash_fwd_kernel"),
 REDESIGNED_HEAD_DIMS = (64, 128)
 
 
+def redesigned_instances():
+    """How many instantiations of each redesigned kernel the libraries must
+    hold: the splash kernels one a head dim; the flash forward one a head
+    dim and admitted (block_q, block_k) pair; dq one a head dim and
+    block_q, dk/dv one a head dim and block_k (they stream 64 rows)."""
+    import torch
+    from ray_tpu_torch.ops.flash_attention import admitted_blocks
+    pairs = admitted_blocks(torch.bfloat16, REDESIGNED_HEAD_DIMS[0])
+    per = {"flash_fwd_kernel": len(pairs),
+           "flash_bwd_dq_kernel": len({bq for bq, _ in pairs}),
+           "flash_bwd_dkv_kernel": len({bk for _, bk in pairs})}
+    return {k: per.get(k, 1) * len(REDESIGNED_HEAD_DIMS)
+            for _, k in REDESIGNED}
+
+
 def ptxas_by_kernel(lines):
     """{mangled kernel name: the ptxas lines that follow its "Compiling
     entry function" line}."""
@@ -643,8 +678,11 @@ def phase_build():
                 "HGMMA": "HGMMA" in body, "UTMALDG": "UTMALDG" in body}
     emit("build", seconds=secs, sources=list(built.values()),
          redesigned=redesigned, setmaxnreg_ignored_lines=ignored)
-    check(len(redesigned) == len(REDESIGNED) * len(REDESIGNED_HEAD_DIMS),
-          f"redesigned kernels found in the libraries: {sorted(redesigned)}")
+    want = redesigned_instances()
+    found = {k: sum(f"{len(k)}{k}" in name for name in redesigned)
+             for k in want}
+    check(found == want, f"redesigned kernel instantiations found in the "
+          f"libraries {found}, expected {want}: {sorted(redesigned)}")
     missing = [n for n, r in redesigned.items()
                if not (r["HGMMA"] and r["UTMALDG"])]
     check(not missing, f"no HGMMA or no UTMALDG in the SASS of {missing}")
@@ -714,6 +752,349 @@ def phase_kernel_bwd(dev, cases=KERNEL_CASES):
              ok=ok, **fields)
         check(ok, f"flash backward case {name!r} outside tolerance")
     return errs
+
+
+# ------------------------------------------------------------ flash tiles
+
+# The flash_tiles phase's cases: the bf16 KERNEL_CASES at the wgmma head
+# dims (causal and not, bsnh, ragged S, the training call's strided qkv
+# views), then a ragged S that no tile divides at both head dims.
+TILE_CASES = [c for c in KERNEL_CASES
+              if c[4] == "bfloat16" and c[1][-1] in (64, 128)] + [
+    ("ragged H64 S1000 bnsh causal bf16", (2, 4, 1000, 64), "bnsh", True,
+     "bfloat16", False),
+    ("ragged H128 S1000 bsnh bf16", (2, 1000, 4, 128), "bsnh", False,
+     "bfloat16", False),
+]
+# The shapes each pair is timed at ([B, N, S, H], bf16, causal; kernels):
+# the inference call (forward only), the training call, and Llama 2 7B's
+# attention (where the causal splash bounds apply).
+TILE_TIMES = [((4, 12, 1024, 64), ("fwd",)),
+              ((32, 12, 1024, 64), ("fwd", "dq", "dkv")),
+              ((2, 32, 4096, 128), ("fwd", "dq", "dkv"))]
+# tune_flash_blocks runs at these ([B, N, S, H]); the GPT-2-small forward
+# at [4, 1024] and a training step at [32, 1024] then take the records.
+TILE_TUNE = [(4, 12, 1024, 64), (32, 12, 1024, 64)]
+
+
+def tile_counts():
+    """A copy of the per-tile launch counter of the flash kernels:
+    {(kernel, block_q, block_k): launches}, kernel fwd, dq or dkv."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    return dict(flash_attention.tile_launches)
+
+
+def tile_delta(after, before):
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def tile_key_str(counts):
+    return {f"{k}:{bq}x{bk}": n for (k, bq, bk), n in sorted(counts.items())}
+
+
+@contextlib.contextmanager
+def scratch_autotune_cache():
+    """A fresh autotune cache file for a tuning phase, with the process's
+    tile memo and cache views cleared on the way in and out, so that what
+    the phase tunes steers no later phase: after it every call resolves
+    its tiles as with no record."""
+    import importlib
+    import ray_tpu_torch.autotune.cache as ac
+    from ray_tpu_torch.autotune import dispatch
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def forget():
+        ac._CACHES.clear()
+        fa._TUNED.clear()
+        fa._CACHE_CONSULTED.clear()
+        dispatch.clear_memo()
+
+    before = os.environ.get("RT_AUTOTUNE_CACHE")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    os.environ["RT_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.jsonl")
+    forget()
+    try:
+        yield os.environ["RT_AUTOTUNE_CACHE"]
+    finally:
+        if before is None:
+            os.environ.pop("RT_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["RT_AUTOTUNE_CACHE"] = before
+        forget()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tile_case_errs(dev, i, case, pairs):
+    """One TILE_CASES case at every pair: o, lse, dq, dk and dv against the
+    plain versions in f32 (computed once), and each pair's tile counter
+    rising by one call of each kernel."""
+    import torch
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference)
+    name, shape, layout, causal, dtype, views = case
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200 + i)
+    q, k, v, do = case_inputs(gen, dev, shape, dtype, views, 4)
+    ro, rl = flash_attention_reference(q.float(), k.float(), v.float(),
+                                       causal, layout=layout)
+    tol_o, tol_lse = KERNEL_TOL[dtype]
+    out = {}
+    for bq, bk in pairs:
+        n0 = tile_counts()
+        o, lse = flash_attention_fwd(q, k, v, causal, bq, bk, layout=layout)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal, bq, bk,
+                                  layout=layout)
+        sync(dev)
+        want = flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            causal, layout=layout)
+        err_o = (o.float() - ro).abs()
+        rec = {"o": float(err_o.max()),
+               "lse": float((lse - rl).abs().max())}
+        ok = bool((err_o <= tol_o + tol_o * ro.abs()).all()) and \
+            rec["lse"] <= tol_lse and bool(torch.isfinite(o).all())
+        for t, a, b in zip(("dq", "dk", "dv"), got, want):
+            rec[t] = float((a.float() - b).abs().max())
+            ok = ok and rec[t] <= BWD_TOL[dtype] * float(b.abs().max()) \
+                and bool(torch.isfinite(a).all())
+        delta = tile_delta(tile_counts(), n0)
+        want_n = ({("fwd", bq, bk): 1, ("dq", bq, bk): 1, ("dkv", bq, bk): 1}
+                  if dev.type == "cuda" else {})
+        out[(bq, bk)] = rec
+        emit("flash_tiles_case", case=name, shape=list(shape), layout=layout,
+             causal=causal, qkv_views=views, blocks=[bq, bk],
+             max_abs_err=rec, o_tol=tol_o, lse_tol=tol_lse,
+             bwd_tol_rel=BWD_TOL[dtype], launches=tile_key_str(delta),
+             ok=ok)
+        check(ok, f"flash tiles ({bq}, {bk}) case {name!r} outside "
+              f"tolerance")
+        check(delta == want_n, f"flash tiles ({bq}, {bk}) case {name!r} "
+              f"launched {delta}, expected {want_n}")
+        del o, lse, got, want
+    return out
+
+
+def _tile_times(dev, shape, kinds, pairs):
+    """Each pair's device time of each kernel in ``kinds`` at ``shape``
+    (bf16, causal, q/k/v strided bnsh views of one fused qkv projection,
+    dO contiguous), beside its bound and SDPA's time (forward; backward as
+    fwd+bwd - fwd, dq+dk+dv together)."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.flash_attention import (_delta, _launch_dkv,
+                                                   _launch_dq, _launch_fwd)
+    B, N, S, H = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = case_inputs(gen, dev, shape, "bfloat16", True, 4)
+    scale = 1.0 / math.sqrt(H)
+    names = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_",
+             "dkv": "flash_bwd_dkv_"}
+    iters = 50 if S * B <= 4096 else 20   # the inference call is short
+    sdpa = {"fwd": device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), None, 20)}
+    if "dq" in kinds:
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            for x in (ql, kl, vl):
+                x.grad = None
+            F.scaled_dot_product_attention(ql, kl, vl,
+                                           is_causal=True).backward(do)
+        sdpa["bwd"] = device_ms(sdpa_fwd_bwd, None, 20) - sdpa["fwd"]
+    out = {}
+    for bq, bk in pairs:
+        o, lse = _launch_fwd(q, k, v, True, None, "bnsh", bq, bk)
+        delta = _delta(o, do, "bnsh")
+        args = (q, k, v, do, lse, delta, True, scale, "bnsh", bq, bk)
+        fns = {"fwd": lambda: _launch_fwd(q, k, v, True, None, "bnsh", bq,
+                                          bk),
+               "dq": lambda: _launch_dq(*args),
+               "dkv": lambda: _launch_dkv(*args)}
+        rec = {}
+        for kind in kinds:
+            n0 = tile_counts()
+            ms = device_ms(fns[kind], names[kind], iters)
+            launched = tile_delta(tile_counts(), n0)
+            bound, bound_by = flash_bound_ms(B, N, S, H, "bfloat16", True,
+                                             kind)
+            check_bound_share(f"flash_{kind} ({bq}, {bk})", list(shape),
+                              bound, ms)
+            rec[kind] = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                         "bound_share": bound / ms,
+                         "library_ms": sdpa["fwd" if kind == "fwd"
+                                            else "bwd"],
+                         "launches": launched.get((kind, bq, bk), 0)}
+            check(set(launched) == {(kind, bq, bk)},
+                  f"timing ({bq}, {bk}) {kind} launched {launched}")
+        out[(bq, bk)] = rec
+        del o, lse, delta
+    emit("flash_tiles_times", shape=list(shape), dtype="bfloat16",
+         causal=True, library="scaled_dot_product_attention (bwd: fwd+bwd "
+         "- fwd, dq+dk+dv)", card=nvidia_smi_line(),
+         pairs={f"{bq}x{bk}": r for (bq, bk), r in out.items()})
+    return out
+
+
+def _tiles_model_checks(dev, cfg, winners, tune=TILE_TUNE):
+    """With tune records in place (the file, not the in-process memo):
+    GPT-2-small's bf16 flash forward at [4, 1024] launches the [4, 1024]
+    winner 12 times and its top-1 agrees with the f32 dense forward's at
+    least as often as the dense bf16 forward's does (less half a point);
+    the loss and grads of a training step at [32, 1024] (bf16, flash,
+    remat dots) launch the [32, 1024] winner 24/12/12 times and pass the
+    train phase's bf16 limits on that batch: per grad leaf, the relative
+    distance from the f32 dense grads at most REL_MULT x the bf16 dense
+    grads', the cosine at most COS_MARGIN below theirs.  The default
+    tiles' ratio is printed beside."""
+    import importlib
+    import torch
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fam = family(cfg)
+    fa._TUNED.clear()               # the persistent records steer now
+    params = fam.init(SEED, cfg, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    B, _, S, _ = tune[0]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+    L = cfg.num_layers if dev.type == "cuda" else 0
+
+    def forward(dtype, attention):
+        logits = fam.forward(params, tokens, dataclasses.replace(
+            cfg, dtype=dtype, attention=attention))
+        sync(dev)
+        check(bool(torch.isfinite(logits).all()), "logits not finite")
+        return logits.argmax(-1)
+
+    top32 = forward(torch.float32, "dense")
+    n0 = tile_counts()
+    top_flash = forward(torch.bfloat16, "flash")
+    fwd_launched = tile_delta(tile_counts(), n0)
+    top_dense = forward(torch.bfloat16, "dense")
+    agree = {"flash_vs_f32": float((top_flash == top32).float().mean()),
+             "dense_vs_f32": float((top_dense == top32).float().mean())}
+    bq, bk = winners[tune[0]]
+    want = {("fwd", bq, bk): L} if L else {}
+    check(fwd_launched == want, f"the forward at the tuned tiles launched "
+          f"{fwd_launched}, expected {want}")
+    check(agree["flash_vs_f32"] >= agree["dense_vs_f32"] - 0.005,
+          "bf16 flash top-1 at the tuned tiles is further from the f32 "
+          "forward than dense's")
+
+    tcfg = dataclasses.replace(cfg, dtype=torch.bfloat16, attention="flash",
+                               remat=True, remat_policy="dots", ce_block=256)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    names = [n for n, _ in named_leaves(params)]
+    B, _, S, _ = tune[1]
+    batch = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                          generator=gen).to(dev)
+    n0 = tile_counts()
+    loss_t, g_t = _loss_and_grads(params, batch, tcfg)
+    step_launched = tile_delta(tile_counts(), n0)
+    _, g32 = _loss_and_grads(params, batch, dataclasses.replace(
+        tcfg, dtype=torch.float32, attention="dense"))
+    rel = {"tuned": [_rel_dist(a, b) for a, b in zip(g_t, g32)]}
+    cos = {"tuned": [_cosine(a, b) for a, b in zip(g_t, g32)]}
+    del g_t
+    _, g_db = _loss_and_grads(params, batch, dataclasses.replace(
+        tcfg, attention="dense"))
+    rel["dense"] = [_rel_dist(a, b) for a, b in zip(g_db, g32)]
+    cos["dense"] = [_cosine(a, b) for a, b in zip(g_db, g32)]
+    del g_db
+    with scratch_autotune_cache():       # no record: the default tiles
+        n0 = tile_counts()
+        _, g_def = _loss_and_grads(params, batch, tcfg)
+        default_launched = tile_delta(tile_counts(), n0)
+    rel["default"] = [_rel_dist(a, b) for a, b in zip(g_def, g32)]
+    del g_def, g32
+    bq, bk = winners[tune[1]]
+    want = ({("fwd", bq, bk): 2 * L, ("dq", bq, bk): L, ("dkv", bq, bk): L}
+            if L else {})
+    ratios = {k: [f / d for f, d in zip(rel[k], rel["dense"])]
+              for k in ("tuned", "default")}
+    gaps = [d - f for f, d in zip(cos["tuned"], cos["dense"])]
+    worst = max(range(len(names)), key=ratios["tuned"].__getitem__)
+    emit("flash_tiles_models", forward_shape=list(tune[0][::2]),
+         forward_blocks=list(winners[tune[0]]),
+         forward_launches=tile_key_str(fwd_launched), bf16_top1=agree,
+         train_shape=[B, S], train_blocks=[bq, bk],
+         train_launches=tile_key_str(step_launched),
+         default_launches=tile_key_str(default_launched), loss_tuned=loss_t,
+         bf16_worst_rel_dist_ratio=ratios["tuned"][worst],
+         bf16_worst_rel_dist_ratio_leaf=names[worst],
+         bf16_worst_rel_dist_ratio_default_tiles=max(ratios["default"]),
+         bf16_max_rel_dist={k: max(v) for k, v in rel.items()},
+         bf16_worst_cos_gap=max(gaps), rel_mult=REL_MULT,
+         cos_margin=COS_MARGIN)
+    check(step_launched == want, f"the training step at the tuned tiles "
+          f"launched {step_launched}, expected {want}")
+    check(math.isfinite(loss_t), "the loss at the tuned tiles is not finite")
+    check(all(r <= REL_MULT for r in ratios["tuned"]),
+          f"bf16 flash grad of {names[worst]} at the tuned tiles further "
+          f"from f32 than {REL_MULT} x the bf16 dense grad's distance")
+    check(max(gaps) <= COS_MARGIN, "bf16 flash grads' cosine at the tuned "
+          "tiles further from f32 than bf16 dense's")
+    return {"forward": fwd_launched, "train": step_launched}
+
+
+def phase_flash_tiles(dev, cfg, cases=TILE_CASES, times=TILE_TIMES,
+                      tune=TILE_TUNE, pairs=None):
+    """The flash kernels at every admitted (block_q, block_k): correctness
+    of each pair on every case, each pair's time at the TILE_TIMES shapes,
+    then tune_flash_blocks at the TILE_TUNE shapes under a scratch cache
+    and GPT-2-small's forward and a training step taking the records.
+    Returns (the per-pair times, the winners, the phase's tile launches)."""
+    import torch
+    from ray_tpu_torch.autotune import attention_key, get_cache
+    from ray_tpu_torch.ops.flash_attention import (admitted_blocks,
+                                                   tune_flash_blocks)
+    if pairs is None:
+        pairs = admitted_blocks(torch.bfloat16, 64)
+    check(pairs == admitted_blocks(torch.bfloat16, 128),
+          "the wgmma kernels admit other pairs at H 64 and 128")
+    n_start = tile_counts()
+    t0 = time.perf_counter()
+    errs = {case[0]: _tile_case_errs(dev, i, case, pairs)
+            for i, case in enumerate(cases)}
+    checked_s = time.perf_counter() - t0
+    timed = {}
+    if dev.type == "cuda":
+        for shape, kinds in times:
+            timed[shape] = _tile_times(dev, shape, kinds, pairs)
+            empty_cache(dev)
+    winners, tuned = {}, {}
+    with scratch_autotune_cache() as path:
+        for B, N, S, H in tune:
+            t1 = time.perf_counter()
+            pair, secs = tune_flash_blocks(B, S, N, H, torch.bfloat16, True,
+                                           device=dev)
+            rec = get_cache().lookup(
+                "flash_attention", attention_key(B, S, N, H, "bfloat16",
+                                                 True), count=False,
+                backend=None if dev.type == "cuda" else "cpu:torch")
+            tuned[(B, N, S, H)] = {
+                "winner": list(pair), "seconds_per_step": secs,
+                "sweep_s": time.perf_counter() - t1,
+                "record": rec and {"config": rec["config"], "ms": rec["ms"],
+                                   "meta": rec.get("meta")}}
+            check(rec is not None and rec["config"] == {
+                "block_q": pair[0], "block_k": pair[1]},
+                f"tune_flash_blocks at {[B, N, S, H]} persisted {rec}")
+            check(dev.type != "cuda" or rec["meta"]["swept"] == len(pairs),
+                  f"tune_flash_blocks at {[B, N, S, H]} timed "
+                  f"{rec['meta']['swept']} of {len(pairs)} pairs")
+            winners[(B, N, S, H)] = pair
+        emit("flash_tiles_tune", cache=path, card=nvidia_smi_line()
+             if dev.type == "cuda" else None,
+             tuned={"x".join(map(str, k)): v for k, v in tuned.items()})
+        models = _tiles_model_checks(dev, cfg, winners, tune)
+    launched = tile_delta(tile_counts(), n_start)
+    emit("flash_tiles", pairs=[list(p) for p in pairs],
+         cases=len(cases), checked_s=checked_s,
+         winners={"x".join(map(str, k)): list(v) for k, v in winners.items()},
+         launches=tile_key_str(launched))
+    return {"errs": errs, "times": timed, "winners": winners,
+            "models": models, "launches": launched}
 
 
 def phase_forward(dev, cfg, params, B, S, windows_n=5, per_window=4):
@@ -3233,6 +3614,15 @@ def runtime_data(dev, cfg, train_out=None) -> dict:
     check(rel <= DATA_LOSS_RTOL, f"the trainer's losses {losses} differ "
           f"from the in-process run's {want} by {rel} (rtol "
           f"{DATA_LOSS_RTOL})")
+    # ROADMAP C12: every lease that waited past lease_wait_log_s on this
+    # cluster so far, with who held the node's resources (the raylets'
+    # reports, from the node stats, which the fit gave time to arrive).
+    from ray_tpu_torch._private.config import config as rt_config
+    from ray_tpu_torch.util import state
+    emit("lease_waits", after="runtime_data", shuffle_s=shuffle_s,
+         lease_wait_log_s=rt_config().lease_wait_log_s,
+         reports={nid[:12]: st.get("lease_waits", [])
+                  for nid, st in state.node_stats().items()})
     waits = [r["wait_ms"] for r in steps]
     copy_ms = done["copy_ms"]
     timed = [r["step_ms"] for r in steps[1:]]
@@ -5127,6 +5517,23 @@ def top1_figures(dev, fam, params, cfg, windows, train):
     # without attention.
     context_free_ce = min(unigram_ce, bigram_ce)
     trained = held_ce <= context_free_ce - TOP1_BELOW_BIGRAM
+    # Per position: each path's bf16 logit error (max over the vocabulary
+    # at that position) against the f32 top-2 gap at the same position.
+    pos_err = {k: (logits[k] - f32).abs().amax(-1).float()
+               for k in ("flash", "dense")}
+    worst = torch.maximum(pos_err["flash"], pos_err["dense"])
+    differ = top["flash"] != top["dense"]
+    qs = torch.tensor([0.5, 0.9, 0.99], device=f32.device)
+    per_position = {
+        **{f"{k}_err_p50_p90_p99_max": [
+            *map(float, torch.quantile(e.flatten(), qs)), float(e.max())]
+           for k, e in pos_err.items()},
+        "share_flash_err_le_dense": float(
+            (pos_err["flash"] <= pos_err["dense"]).float().mean()),
+        "share_gap_under_own_err": float((gap < worst).float().mean()),
+        "flash_dense_disagree": int(differ.sum()),
+        "disagree_with_gap_under_own_err": int((differ & (gap < worst))
+                                               .sum())}
     return dict(
         held_out_positions=targets.numel(), held_out_ce=held_ce,
         unigram_ce=unigram_ce, bigram_ce=bigram_ce,
@@ -5134,17 +5541,36 @@ def top1_figures(dev, fam, params, cfg, windows, train):
         bf16_max_logit_err=err,
         share_top2_gap_under_bf16_err=float((gap < err).float().mean()),
         f32_top2_gap_p05=float(torch.quantile(gap.flatten().float(), 0.05)),
-        byte_logits=bytes_only,
+        per_position=per_position, byte_logits=bytes_only,
         c1_holds=trained and agree["bf16_top1_flash_vs_dense"] >= 0.99)
+
+
+class ClippedOptimizer:
+    """An optimizer as ``make_train_step`` drives it (``zero_grad``,
+    ``step``), whose step first clips the global grad norm to
+    ``max_norm`` (optax's ``clip_by_global_norm``)."""
+
+    def __init__(self, opt, params, max_norm: float):
+        self.opt, self.max_norm = opt, max_norm
+        self.params = [p for _, p in named_leaves(params)]
+
+    def zero_grad(self, set_to_none=True):
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        import torch
+        torch.nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        self.opt.step()
 
 
 def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
                        eval_rows=8, lr=1e-3, warmup=30, copy_rows=8,
-                       span=COPY_SPAN):
+                       span=COPY_SPAN, clip=None):
     """The bf16 top-1 check on trained weights.  GPT-2-small (``cfg``, the
     bf16 flash training configuration) trains ``steps`` AdamW steps on
-    byte tokens (ids < 256), learning rate ``lr`` after a linear warmup;
-    each step's batch holds ``B`` windows of S + 1 bytes of the first 90%
+    byte tokens (ids < 256), learning rate ``lr`` after a linear warmup,
+    the global grad norm clipped to ``clip`` when it is given; each step's
+    batch holds ``B`` (may be 0) windows of S + 1 bytes of the first 90%
     of ``repo_text_bytes()`` (drawn from seed SEED + 5) and ``copy_rows``
     windows of the copy corpus (``copy_task_rows``, from seed SEED + 6).
     Then ``top1_figures`` on each corpus's held-out windows: ``eval_rows``
@@ -5172,7 +5598,8 @@ def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
                                   weight_decay=0.0, device=dev)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda i: min(1.0, (i + 1) / warmup))
-    step = fam.train_step(cfg, opt)
+    step = fam.train_step(cfg, opt if clip is None else
+                          ClippedOptimizer(opt, params, clip))
     gen = torch.Generator().manual_seed(SEED + 5)
     t0 = time.perf_counter()
     losses, copy_train = [], []
@@ -5180,8 +5607,9 @@ def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
         starts = torch.randint(0, len(train) - S - 1, (B,), generator=gen)
         copies = copy_task_rows(copy_gen, copy_rows, S, probs, span)
         copy_train.append(copies)
-        batch = {"tokens": torch.cat([torch.stack(
-            [train[j:j + S + 1] for j in starts.tolist()]), copies]).to(dev)}
+        rows = [train[j:j + S + 1] for j in starts.tolist()]
+        batch = {"tokens": torch.cat([torch.stack(rows), copies] if rows
+                                     else [copies]).to(dev)}
         m = step(params, batch)
         sched.step()
         if i % 50 == 0 or i == steps - 1:
@@ -5196,7 +5624,7 @@ def phase_top1_trained(dev, cfg, random_top1, B=8, S=1024, steps=300,
     fields = dict(
         texts=names, bytes_train=len(train), bytes_held_out=len(held),
         batch=B, copy_rows=copy_rows, copy_span=span, seq=S,
-        steps=steps, learning_rate=lr, warmup_steps=warmup,
+        steps=steps, learning_rate=lr, warmup_steps=warmup, clip=clip,
         train_s=train_s, losses_every_50=losses,
         below_bigram_required=TOP1_BELOW_BIGRAM, **text_fig,
         copy_task=copy_fig, random_weights=random_top1,
@@ -5293,15 +5721,21 @@ def run() -> int:
 
     phase_build()
 
+    cfg = GPTConfig.gpt2_small()
+    tiles_before = tile_counts()
     errs = phase_kernel(dev)
     bwd_errs = phase_kernel_bwd(dev)
+    # Every admitted tile pair; its tuning records live in a scratch cache
+    # that is gone when the phase ends.
+    tiles_at = tile_counts()
+    tiles = phase_flash_tiles(dev, cfg)
+    tuning_launches = tile_delta(tile_counts(), tiles_at)
     splash_errs = phase_kernel_splash(dev)
 
     # GPT-2-small, then LLaMA-125M at bench.py's _llama_point: the same
     # training settings (B=32, S=1024, bf16, flash, remat dots, ce_block 256)
     train_kw = dict(attention="flash", remat=True, remat_policy="dots",
                     ce_block=256)
-    cfg = GPTConfig.gpt2_small()
     fwd, infer_launches, train = model_paths(
         dev, cfg, dataclasses.replace(cfg, **train_kw))
     phase_top1_trained(dev, dataclasses.replace(cfg, **train_kw),
@@ -5332,8 +5766,12 @@ def run() -> int:
           "the pipeline path missed a kernel")
 
     reset_launch_counts()                     # the autotune path starts
-    phase_autotune(dev, cfg)
+    tiles_at = tile_counts()
+    with scratch_autotune_cache():            # its records steer no later
+        phase_autotune(dev, cfg)              # phase
     tune_launches = launch_counts()           # ... and ends here
+    tuning_launches = {k: tuning_launches.get(k, 0) + n for k, n in
+                       tile_delta(tile_counts(), tiles_at).items()}
     emit("autotune_launches", launches=dict(zip(KERNEL_NAMES,
                                                 tune_launches)))
     check(all(tune_launches[3:]), "the autotune path missed a splash kernel")
@@ -5352,6 +5790,19 @@ def run() -> int:
         cfg, dtype=torch.bfloat16, attention="flash"),
         fwd["bf16_flash_max_abs_diff_vs_f32"], smi, fwd["serve"],
         dataclasses.replace(cfg, **train_kw), train["ms"])
+    # No record, default tiles: the launches outside the two tuning
+    # phases (this process's; the runtime's processes count their own) are
+    # the kernel families' defaults only.
+    untuned = tile_delta(tile_counts(), tiles_before)
+    untuned = {k: n - tuning_launches.get(k, 0) for k, n in untuned.items()
+               if n != tuning_launches.get(k, 0)}
+    emit("flash_tiles_untuned", launches=tile_key_str(untuned),
+         tuning_launches=tile_key_str(tuning_launches))
+    check(all((bq, bk) in ((128, 128), (64, 64)) for _, bq, bk in untuned),
+          f"a phase without a record launched other tiles: {untuned}")
+    check(all(untuned.get((k, 128, 128), 0) > 0
+              for k in ("fwd", "dq", "dkv")),
+          f"the default tiles never ran outside tuning: {untuned}")
     emit("total", seconds=time.monotonic() - _T0)
     pipe_launches = [pipe["gpipe"]["launches"][i] +
                      pipe["1f1b"]["launches"][i] for i in range(3)]
@@ -5360,6 +5811,26 @@ def run() -> int:
     splash_main = splash_errs[SPLASH_MAIN[0]]
     common = {"route": "cuda", "dtype": "bfloat16", "causal": True,
               "card": smi}
+
+    def tile_fields(kind):
+        """A flash kernel's tiles for the kernels line: the default pair,
+        each pair's times at the flash_tiles shapes, and launches by pair
+        outside the tuning phases and in them."""
+        return {"blocks": [128, 128],
+                "tiles": {"x".join(map(str, shape)): {
+                    f"{bq}x{bk}": r[kind] for (bq, bk), r in t.items()}
+                    for shape, t in tiles["times"].items()
+                    if kind in next(iter(t.values()))},
+                "launches_by_tile": {
+                    f"{bq}x{bk}": n for (k, bq, bk), n in untuned.items()
+                    if k == kind},
+                "launches_by_tile_tuning": {
+                    f"{bq}x{bk}": n
+                    for (k, bq, bk), n in tuning_launches.items()
+                    if k == kind},
+                "tuned_winners": {"x".join(map(str, shape)): list(pair)
+                                  for shape, pair in
+                                  tiles["winners"].items()}}
     splash_common = {"source": "ray_tpu_torch/csrc/splash_attention.cu",
                      "reached_via": "ray_tpu/autotune/dispatch.py:238",
                      "shape": list(SPLASH_SHAPE), "blocks": [128, 128],
@@ -5397,7 +5868,8 @@ def run() -> int:
          "train_call_max_abs_err": errs[TRAIN_CASE[0]][0],
          "train_call_lse_max_abs_err": errs[TRAIN_CASE[0]][1],
          **times, "train_call": train_times,
-         "design": FLASH_BF16_DESIGN["fwd"], **common},
+         "design": FLASH_BF16_DESIGN["fwd"], **tile_fields("fwd"),
+         **common},
         {"name": "flash_bwd_dq", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:217",
          "launches": train["launches"][1] + llama_train["launches"][1] +
@@ -5418,7 +5890,7 @@ def run() -> int:
          "max_abs_err": train_errs["dq"],
          **bwd_times["dq"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dq"], "shape": list(TRAIN_CASE[1]),
-         **common},
+         **tile_fields("dq"), **common},
         {"name": "flash_bwd_dkv", "source": "ray_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ray_tpu/ops/flash_attention.py:263",
          "launches": train["launches"][2] + llama_train["launches"][2] +
@@ -5439,7 +5911,7 @@ def run() -> int:
          "max_abs_err": max(train_errs["dk"], train_errs["dv"]),
          **bwd_times["dkv"], "library_covers": "dq+dk+dv",
          "design": FLASH_BF16_DESIGN["dkv"], "shape": list(TRAIN_CASE[1]),
-         **common},
+         **tile_fields("dkv"), **common},
         {"name": "splash_fwd", "replaces": f"{splash_kernel}:696",
          "launches": tune_launches[3], "max_abs_err": splash_main["o"],
          "lse_max_abs_err": splash_main["lse"], **splash_times["fwd"],

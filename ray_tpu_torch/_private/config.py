@@ -69,6 +69,9 @@ class RtConfig:
     idle_worker_cap_per_shape: int = 8
     worker_start_timeout_s: float = 120.0
     lease_request_timeout_s: float = 600.0
+    # A lease queued longer than this logs who holds the node's resources
+    # (raylet `_lease_wait_watch`); 0 turns the report off.
+    lease_wait_log_s: float = 10.0
     # -- forkserver (all deadlines are per-step, never block the loop) --
     forkserver_connect_timeout_s: float = 1.0   # unix connect deadline
     forkserver_spawn_timeout_s: float = 5.0     # request->pid reply deadline

@@ -111,6 +111,23 @@ class LeaseRequest:
     runtime_env: Optional[dict] = None
     env_key: str = ""
     job_id: Optional[str] = None
+    queued_at: float = field(default_factory=time.monotonic)
+    wait_reported: bool = False   # a lease-wait report named it already
+
+
+def lease_wait_report(waited_s: float, wants: Dict[str, float],
+                      pending: int, available: Dict[str, float],
+                      holders: List[dict]) -> dict:
+    """What a raylet records when a lease has waited ``waited_s`` seconds:
+    the lease's resources, how many leases wait, the node's free
+    resources, and every holder of the node's resources (``holders``:
+    one dict per leased or actor worker, from ``Raylet._holders``), the
+    longest held first.  One JSON line of this goes to the raylet's log
+    and the last few to its node stats (``lease_waits``)."""
+    return {"waited_s": round(float(waited_s), 3), "wants": dict(wants),
+            "pending": int(pending), "available": dict(available),
+            "holders": sorted(holders,
+                              key=lambda h: -float(h.get("held_s", 0.0)))}
 
 
 class Raylet:
@@ -163,6 +180,9 @@ class Raylet:
         # probes one head per class instead of scanning every request —
         # O(classes) per completion, not O(queue).
         self.pending_leases: Dict[tuple, collections.deque] = {}
+        # Reports of leases that waited past config().lease_wait_log_s
+        # (`_lease_wait_watch`), newest last, in the node stats.
+        self.lease_waits: collections.deque = collections.deque(maxlen=8)
         # lease_ids whose resources were returned early (worker blocked in
         # get); _h_return_lease must not return them a second time.
         self._blocked_leases: set = set()
@@ -257,6 +277,8 @@ class Raylet:
             self._reap_loop()))
         self._tasks.append(asyncio.get_running_loop().create_task(
             self._stuck_lease_watchdog()))
+        self._tasks.append(asyncio.get_running_loop().create_task(
+            self._lease_wait_watch()))
         self._tasks.append(asyncio.get_running_loop().create_task(
             self._pressure_loop()))
         self._tasks.append(asyncio.get_running_loop().create_task(
@@ -430,6 +452,7 @@ class Raylet:
                     None, self._collect_node_stats, prev, snap)
                 if self._watchdog is not None:
                     stats.update(self._watchdog.record())
+                stats["lease_waits"] = list(self.lease_waits)
                 await self.gcs_conn.notify({
                     "type": "report_node_stats",
                     "node_id": self.node_id.hex(),
@@ -577,6 +600,66 @@ class Raylet:
                     await self._dispatch_leases()
                 except Exception:
                     logger.exception("stuck-lease redispatch failed")
+
+    async def _holders(self) -> List[dict]:
+        """Who holds this node's resources now: every worker with a lease
+        (its resources, seconds held, job, and what its task is doing:
+        the worker's own answer to a ping, ``args`` while it resolves its
+        arguments, ``running`` once the function runs) and every actor
+        worker that charged resources to the node."""
+        now = time.monotonic()
+        out = []
+        for w in list(self.workers.values()):
+            if w.lease_id is not None and w.lease_resources is not None:
+                rec = {"kind": "lease", "worker": w.worker_id.hex()[:12],
+                       "pid": w.proc.pid, "resources": w.lease_resources[0],
+                       "held_s": round(now - w.busy_since, 3),
+                       "blocked": w.blocked}
+                if w.conn is not None:
+                    try:
+                        reply = await w.conn.request({"type": "ping"},
+                                                     timeout=2.0)
+                        rec.update({k: reply[k] for k in ("task", "phase")
+                                    if k in reply})
+                    except Exception as e:  # a wedged worker says so too
+                        rec["ping"] = repr(e)[:120]
+                out.append(rec)
+            elif w.actor_id is not None and w.actor_resources:
+                res = {k: v for k, v in w.actor_resources[0].items() if v}
+                if res:
+                    out.append({"kind": "actor", "actor": w.actor_id[:12],
+                                "pid": w.proc.pid, "resources": res})
+        return out
+
+    async def _lease_wait_watch(self):
+        """C12's probe: when a queued lease has waited longer than
+        ``config().lease_wait_log_s``, log once, on a line of its own,
+        which leases and workers hold the node's resources, and keep the
+        report for the node stats."""
+        while not self._shutdown:
+            await asyncio.sleep(1.0)
+            limit = config().lease_wait_log_s
+            if limit <= 0:
+                continue
+            now = time.monotonic()
+            late = [r for r in self._pending_iter()
+                    if not r.wait_reported and not r.future.done()
+                    and now - r.queued_at > limit]
+            if not late:
+                continue
+            for r in late:
+                r.wait_reported = True
+            first = min(late, key=lambda r: r.queued_at)
+            try:
+                report = lease_wait_report(
+                    now - first.queued_at, first.resources,
+                    self._pending_len(), self.resources_available,
+                    await self._holders())
+            except Exception:
+                logger.exception("lease wait report failed")
+                continue
+            self.lease_waits.append(report)
+            logger.warning("raylet lease wait: %s", json.dumps(report))
 
     async def _heartbeat_loop(self):
         from ray_tpu_torch.util import fault_injection
@@ -1899,6 +1982,7 @@ class Raylet:
             "num_workers": len(self.workers),
             "num_idle": self._num_idle(),
             "pending_leases": self._pending_len(),
+            "lease_waits": list(self.lease_waits),
             "resources_total": self.resources_total,
             "resources_available": self.resources_available,
             "plasma": self.plasma.stats(),

@@ -56,6 +56,7 @@ class TaskExecutor:
         self._exit_requested = False
         self._order: dict = {}
         self._current_task_id: str = None
+        self._current_task_name: str = None
         self._task_handle = None
         self._exec_started = False
         # actor-call cancellation registry: call_id -> asyncio task;
@@ -114,7 +115,12 @@ class TaskExecutor:
         if mtype == "actor_call":
             return await self._actor_call(conn, msg)
         if mtype == "ping":
-            return {"ok": True}
+            # What the task this worker runs is doing, for the raylet's
+            # lease-wait report: "args" while its arguments resolve.
+            if self._current_task_id is None:
+                return {"ok": True}
+            return {"ok": True, "task": self._current_task_name,
+                    "phase": "running" if self._exec_started else "args"}
         if mtype == "profile":
             return await self._profile(msg)
         if mtype == "cancel_task":
@@ -186,6 +192,7 @@ class TaskExecutor:
         # cancels THIS asyncio task rather than injecting a thread
         # interrupt that has nothing to hit yet.
         self._current_task_id = spec["task_id"]
+        self._current_task_name = spec.get("name")
         self._task_handle = asyncio.current_task()
         self._exec_started = False
         t0 = time.time()

@@ -26,7 +26,9 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.autotune import metrics as _am
 from ray_tpu_torch.autotune.cache import (attention_key, backend_fingerprint,
                                           canon_dtype, get_cache)
-from ray_tpu_torch.ops.flash_attention import _dense_reference, flash_attention
+from ray_tpu_torch.ops.flash_attention import (_dense_reference,
+                                               admitted_blocks,
+                                               flash_attention)
 from ray_tpu_torch.ops.splash_attention import HEAD_DIMS as SPLASH_HEAD_DIMS
 
 # The smallest block the reference's sweeps offer (the TPU's sublanes).
@@ -181,12 +183,14 @@ def suggest_blocks(S: int) -> Tuple[int, int, int]:
 
 
 def flash_candidates(kd: dict, device: torch.device) -> List[dict]:
-    """On the card ``[{}]``: the Hopper flash kernels pick their own tiles,
-    and ``block_q``/``block_k`` steer only the plain versions.  On the CPU
+    """On the card every (block_q, block_k) pair the Hopper kernels admit
+    at the key's dtype and head dim (``admitted_blocks``: {64, 128}^2 for
+    bf16 at H 64 and 128, (64, 64) for the mma.sync kernels).  On the CPU
     the plain versions' blocks, shrunk as the reference's interpret mode
     shrinks them (the two largest of 8..128 that divide S)."""
     if device.type == "cuda":
-        return [{}]
+        pairs = admitted_blocks(getattr(torch, kd["dtype"]), kd["H"])
+        return [{"block_q": bq, "block_k": bk} for bq, bk in pairs]
     S = kd["S"]
     vals = [v for v in (8, 16, 32, 64, 128) if v <= S and S % v == 0]
     vals = vals[-2:] or [S]
@@ -292,7 +296,19 @@ register_op("ring_attention", lambda kd, dev: [{}], ring_build)
 register_op("splash_attention", splash_candidates, splash_build)
 
 
-__all__ = ["register_op", "get_op", "search_op", "tune", "time_fn",
-           "suggest_blocks", "valid_blocks", "flash_candidates",
+def tune_flash(B: int, S: int, N: int, H: int, dtype: Any = "bfloat16",
+               causal: bool = True, candidates: Optional[List[dict]] = None,
+               device=None, force: bool = False,
+               budget_s: Optional[float] = None) -> Optional[dict]:
+    """Convenience wrapper: tune flash block sizes for one shape on
+    ``device`` (default: the card) and persist the winner.  Returns the
+    cache record."""
+    key = attention_key(B, S, N, H, canon_dtype(dtype), causal)
+    return tune("flash_attention", key, force=force, device=device,
+                candidates=candidates, budget_s=budget_s)
+
+
+__all__ = ["register_op", "get_op", "search_op", "tune", "tune_flash",
+           "time_fn", "suggest_blocks", "valid_blocks", "flash_candidates",
            "splash_candidates", "splash_supported", "parse_key",
            "attention_key", "backend_fingerprint", "canon_dtype"]

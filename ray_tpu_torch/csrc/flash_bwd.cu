@@ -34,18 +34,23 @@
 // issues 4-d TMA loads (maps over [B, N, S, H] with the caller's strides,
 // so bnsh, bsnh and strided views of a fused qkv projection are read in
 // place; rows past S arrive as zeros) into a 2-stage ring with full/empty
-// mbarriers and gives its registers up (setmaxnreg 24), and two consumer
-// warpgroups (setmaxnreg 240) run every product on wgmma from shared
+// mbarriers and gives its registers up (setmaxnreg 24), and the consumer
+// warpgroups (setmaxnreg 240, or 232 alone) run every product on wgmma from shared
 // memory, with P and dS as register A operands and the operand a product
 // reduces over rows of read through the transpose flag.
-//   * dq, query frame: one block per (batch*head, 128-row query tile),
+//   * the tile pair (block_q, block_k), each 64 or 128 (default 128,
+//     128), sets the rows a block owns: block_q query rows in dq, block_k
+//     keys in dk/dv, each 64 rows a consumer warpgroup (one or two; see
+//     `WsShape` in csrc/hopper.cuh for the registers).  The streamed
+//     dimension stays at 64 rows in both;
+//   * dq, query frame: one block per (batch*head, block_q-row query tile),
 //     heaviest causal tiles first; Q and dO resident, 64-key K/V tiles
 //     streamed up to the causal bound of the block's last row.  Each
-//     consumer warpgroup owns 64 rows, skips the key tile past its own
+//     consumer warpgroup owns 64 rows, skips the key tiles past its own
 //     diagonal and masks only the tile that crosses it and a ragged last
 //     key tile;
-//   * dk/dv, key frame: one block per (batch*head, 128-key tile), low key
-//     tiles first; K and V resident, 64-row Q/dO tiles streamed from the
+//   * dk/dv, key frame: one block per (batch*head, block_k-key tile), low
+//     key tiles first; K and V resident, 64-row Q/dO tiles streamed from the
 //     first that reaches the block's keys, each with its 64 entries of lse
 //     and D (bulk copies, so the caller passes them in rows of S rounded up
 //     to 64).  Each warpgroup owns 64 keys, skips a query tile wholly
@@ -532,8 +537,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // ========================================================= wgmma: dq
 
-template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+// The wgmma backward kernels take the tile pair (block_q, block_k), each
+// 64 or 128 (default 128, 128), as the reference's kernels do: dq owns BQ =
+// block_q query rows a block, dk/dv BK = block_k key rows (rows / 64
+// consumer warpgroups).  The dimension each streams stays at 64 rows: dq's
+// K/V tiles, dk/dv's Q/dO tiles with their 64 entries of lse and D.
+
+template <int HD, int BQ>
+__global__ void __launch_bounds__(WsShape<BQ / 64>::kThreads,
+                                  WsShape<BQ / 64>::kBlocksPerSm)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
@@ -542,7 +554,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                         const float* __restrict__ delta,
                         bf16* __restrict__ dq, int N, int S, View dqv,
                         int causal, float scale) {
-  using L = DqLayout<HD>;
+  using L = DqLayout<HD, BQ>;
+  using W = WsShape<BQ / 64>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qdo_full = base + L::kBars;
@@ -550,11 +563,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   auto empty = [=](int s) { return qdo_full + 8 * (1 + kStages + s); };
 
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   // key tiles up to the last key the block's last row sees
-  const int n_kt = (causal ? min(q0 + 127, S - 1) : S - 1) / 64 + 1;
+  const int n_kt = (causal ? min(q0 + BQ - 1, S - 1) : S - 1) / 64 + 1;
 
-  init_ring_barriers(qdo_full);
+  init_ring_barriers(qdo_full, W::kWarps);
 
   if (threadIdx.x < kWg) {
     // Producer: Q and dO once, then K and V of every key tile.
@@ -580,7 +593,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
   } else {
     // Consumers: warpgroup c owns query rows [r0, r0 + 64) of the tile.
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<W::kConsumerRegs>();
     const int c = threadIdx.x / kWg - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int r0 = q0 + 64 * c;
@@ -608,10 +621,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       // causal: a key tile past the warpgroup's last row is all masked for
       // it; the tile on its diagonal and a ragged last tile are masked
       if (!causal || k0 <= r0 + 63)
-        dq_tile<HD>(acc, q_rows, do_rows, L::k_tile(base, stage),
-                    L::v_tile(base, stage), scale_log2, scale, l0, l1, d0,
-                    d1, (causal && k0 + 63 > r0) || k0 + 64 > S, last0 - k0,
-                    last1 - k0);
+        dq_tile<HD, BQ>(acc, q_rows, do_rows, L::k_tile(base, stage),
+                        L::v_tile(base, stage), scale_log2, scale, l0, l1, d0,
+                        d1, (causal && k0 + 63 > r0) || k0 + 64 > S,
+                        last0 - k0, last1 - k0);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
     }
@@ -621,8 +634,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 // ====================================================== wgmma: dk, dv
 
-template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+template <int HD, int BK>
+__global__ void __launch_bounds__(WsShape<BK / 64>::kThreads,
+                                  WsShape<BK / 64>::kBlocksPerSm)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -631,7 +645,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
                          int S, View dkv_, View dvv, int causal, float scale) {
-  using L = DkvLayout<HD>;
+  using L = DkvLayout<HD, BK>;
+  using W = WsShape<BK / 64>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
@@ -641,11 +656,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   auto empty = [=](int s) { return kv_full + 8 * (1 + kStages + s); };
 
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
-  const int k0 = blockIdx.x * 128;  // low key tiles see the most queries
+  const int k0 = blockIdx.x * BK;  // low key tiles see the most queries
   // causal: query tiles wholly before this key tile see none of its keys
   const int qt0 = causal ? k0 / 64 : 0, n_qt = (S + 63) / 64;
 
-  init_ring_barriers(kv_full);
+  init_ring_barriers(kv_full, W::kWarps);
 
   if (threadIdx.x < kWg) {
     // Producer: K and V once, then Q, dO, lse and D of every query tile.
@@ -675,7 +690,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
   } else {
     // Consumers: warpgroup c owns keys [kw, kw + 64) of the tile.
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<W::kConsumerRegs>();
     const int c = threadIdx.x / kWg - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int kw = k0 + 64 * c;
@@ -698,11 +713,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (!causal || q0 + 63 >= kw) {
         const float* lse_s =
             reinterpret_cast<const float*>(sm + L::stats(stage));
-        dkv_tile<HD>(acc_k, acc_v, k_rows, v_rows, L::q_tile(base, stage),
-                     L::do_tile(base, stage), lse_s, lse_s + 64, scale_log2,
-                     scale, (causal && q0 < kw + 63) || q0 + 64 > S,
-                     causal ? key0 - q0 : 0, causal ? key1 - q0 : 0,
-                     S - 1 - q0);
+        dkv_tile<HD, BK>(acc_k, acc_v, k_rows, v_rows, L::q_tile(base, stage),
+                         L::do_tile(base, stage), lse_s, lse_s + 64,
+                         scale_log2, scale,
+                         (causal && q0 < kw + 63) || q0 + 64 > S,
+                         causal ? key0 - q0 : 0, causal ? key1 - q0 : 0,
+                         S - 1 - q0);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
@@ -722,6 +738,7 @@ struct Args {
   View qv, kv, vv, dov, dqv, dkv, dvv;
   int causal;
   float scale;
+  int block_q, block_k;
   cudaStream_t stream;
 };
 
@@ -760,41 +777,44 @@ cudaError_t map_of(CUtensorMap* m, const void* ptr, const Args& a, View v,
   return bf16_map(m, ptr, a.B, a.N, a.S, HD, v, rows);
 }
 
-template <int HD>
+template <int HD, int BQ>
 cudaError_t launch_dq_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
-  if ((err = map_of<HD>(&tq, a.q, a, a.qv, 128)) != cudaSuccess ||
+  if ((err = map_of<HD>(&tq, a.q, a, a.qv, BQ)) != cudaSuccess ||
       (err = map_of<HD>(&tk, a.k, a, a.kv, 64)) != cudaSuccess ||
       (err = map_of<HD>(&tv, a.v, a, a.vv, 64)) != cudaSuccess ||
-      (err = map_of<HD>(&tdo, a.dout, a, a.dov, 128)) != cudaSuccess)
+      (err = map_of<HD>(&tdo, a.dout, a, a.dov, BQ)) != cudaSuccess)
     return err;
-  const size_t smem = DqLayout<HD>::kBytes;
-  if ((err = set_smem(flash_bwd_dq_kernel<HD>, smem)) != cudaSuccess)
+  const size_t smem = DqLayout<HD, BQ>::kBytes;
+  if ((err = set_smem(flash_bwd_dq_kernel<HD, BQ>, smem)) != cudaSuccess)
     return err;
-  const dim3 grid((a.S + 127) / 128, a.B * a.N);
-  flash_bwd_dq_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.N, a.S,
-      a.dqv, a.causal, a.scale);
+  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.N);
+  flash_bwd_dq_kernel<HD, BQ>
+      <<<grid, WsShape<BQ / 64>::kThreads, smem, a.stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.N,
+          a.S, a.dqv, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int BK>
 cudaError_t launch_dkv_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
   if ((err = map_of<HD>(&tq, a.q, a, a.qv, 64)) != cudaSuccess ||
-      (err = map_of<HD>(&tk, a.k, a, a.kv, 128)) != cudaSuccess ||
-      (err = map_of<HD>(&tv, a.v, a, a.vv, 128)) != cudaSuccess ||
+      (err = map_of<HD>(&tk, a.k, a, a.kv, BK)) != cudaSuccess ||
+      (err = map_of<HD>(&tv, a.v, a, a.vv, BK)) != cudaSuccess ||
       (err = map_of<HD>(&tdo, a.dout, a, a.dov, 64)) != cudaSuccess)
     return err;
-  const size_t smem = DkvLayout<HD>::kBytes;
-  if ((err = set_smem(flash_bwd_dkv_kernel<HD>, smem)) != cudaSuccess)
+  const size_t smem = DkvLayout<HD, BK>::kBytes;
+  if ((err = set_smem(flash_bwd_dkv_kernel<HD, BK>, smem)) != cudaSuccess)
     return err;
-  const dim3 grid((a.S + 127) / 128, a.B * a.N);
-  flash_bwd_dkv_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.N, a.S, a.dkv, a.dvv, a.causal, a.scale);
+  const dim3 grid((a.S + BK - 1) / BK, a.B * a.N);
+  flash_bwd_dkv_kernel<HD, BK>
+      <<<grid, WsShape<BK / 64>::kThreads, smem, a.stream>>>(
+          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.N, a.S, a.dkv, a.dvv, a.causal,
+          a.scale);
   return cudaGetLastError();
 }
 
@@ -803,17 +823,31 @@ cudaError_t launch_mma(const Args& a) {
   return kDq ? launch_dq_mma<T, HD>(a) : launch_dkv_mma<T, HD>(a);
 }
 
+// The wgmma kernel for an admitted pair: dq by the rows it owns, block_q;
+// dk/dv by block_k.
 template <int HD, bool kDq>
 cudaError_t launch_wgmma(const Args& a) {
-  return kDq ? launch_dq_wgmma<HD>(a) : launch_dkv_wgmma<HD>(a);
+  const bool admitted = (a.block_q == 64 || a.block_q == 128) &&
+                        (a.block_k == 64 || a.block_k == 128);
+  if (!admitted) return cudaErrorInvalidValue;
+  if (kDq)
+    return a.block_q == 64 ? launch_dq_wgmma<HD, 64>(a)
+                           : launch_dq_wgmma<HD, 128>(a);
+  return a.block_k == 64 ? launch_dkv_wgmma<HD, 64>(a)
+                         : launch_dkv_wgmma<HD, 128>(a);
 }
 
 // dtype 0 (f32) takes the mma.sync kernels at every head dim; dtype 1
 // (bf16) the wgmma kernels at head dims 64 and 128, the mma.sync kernels
-// at 16 and 32.
+// at 16 and 32.  The mma.sync kernels admit their own tile only, (64, 64);
+// the wgmma kernels (block_q, block_k) in {64, 128} x {64, 128}.  Any other
+// pair is refused with cudaErrorInvalidValue: nothing is rounded.
 template <bool kDq>
 cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.S <= 0) return cudaSuccess;
+  const bool wgmma = dtype == 1 && (head_dim == 64 || head_dim == 128);
+  if (!wgmma && (a.block_q != kTile || a.block_k != kTile))
+    return cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (head_dim) {
       case 16: return launch_mma<float, 16, kDq>(a);
@@ -837,7 +871,8 @@ cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse and delta
 // are f32 [B*N, S rounded up to 64], 16-byte aligned; the entries past S in
 // each row are read and masked, so they must be finite (the wrapper pads
-// with zeros).
+// with zeros).  block_q and block_k: the tile pair (see `dispatch`); dq
+// owns block_q rows a block, dk/dv block_k.
 extern "C" cudaError_t rt_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int dtype, int head_dim,
@@ -845,7 +880,7 @@ extern "C" cudaError_t rt_flash_bwd_dq(
     long long k_sb, long long k_sn, long long k_ss, long long v_sb,
     long long v_sn, long long v_ss, long long do_sb, long long do_sn,
     long long do_ss, long long dq_sb, long long dq_sn, long long dq_ss,
-    int causal, float sm_scale, void* stream) {
+    int causal, float sm_scale, int block_q, int block_k, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.dq = dq;
@@ -856,6 +891,7 @@ extern "C" cudaError_t rt_flash_bwd_dq(
   a.dov = View{do_sb, do_sn, do_ss};
   a.dqv = View{dq_sb, dq_sn, dq_ss};
   a.causal = causal; a.scale = sm_scale;
+  a.block_q = block_q; a.block_k = block_k;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<true>(dtype, head_dim, a);
 }
@@ -868,7 +904,7 @@ extern "C" cudaError_t rt_flash_bwd_dkv(
     long long v_sb, long long v_sn, long long v_ss, long long do_sb,
     long long do_sn, long long do_ss, long long dk_sb, long long dk_sn,
     long long dk_ss, long long dv_sb, long long dv_sn, long long dv_ss,
-    int causal, float sm_scale, void* stream) {
+    int causal, float sm_scale, int block_q, int block_k, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.dk = dk; a.dv = dv;
@@ -880,6 +916,7 @@ extern "C" cudaError_t rt_flash_bwd_dkv(
   a.dkv = View{dk_sb, dk_sn, dk_ss};
   a.dvv = View{dv_sb, dv_sn, dv_ss};
   a.causal = causal; a.scale = sm_scale;
+  a.block_q = block_q; a.block_k = block_k;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<false>(dtype, head_dim, a);
 }

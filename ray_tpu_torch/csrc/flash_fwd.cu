@@ -21,19 +21,24 @@
 // Two kernels; the dtype and head dim pick one, and nothing falls back
 // from one to the other.
 //
-// bf16 at head dims 64 and 128, `flash_fwd_kernel`: the splash forward's
-// design (csrc/splash_attention.cu, helpers in csrc/hopper.cuh) with the
-// flash kernel's own function.  One block of three warpgroups per
-// (batch*head, 128-row query tile), heaviest causal tiles first.  One
-// producer thread loads Q once and streams 128-key K and V tiles through a
+// bf16 at head dims 64 and 128, `flash_fwd_kernel<HD, BQ, BK>`: the
+// splash forward's design (csrc/splash_attention.cu, helpers in
+// csrc/hopper.cuh) with the flash kernel's own function, at the tile pair
+// (block_q, block_k) = (BQ, BK), each 64 or 128 (default 128, 128).  One
+// block of a producer warpgroup and BQ / 64 consumer warpgroups per
+// (batch*head, BQ-row query tile), heaviest causal tiles first.  One
+// producer thread loads Q once and streams BK-key K and V tiles through a
 // 2-stage TMA ring (4-d maps over [B, N, S, H] with the caller's strides,
 // so bnsh, bsnh and strided views of a fused qkv projection are read in
-// place; rows past S arrive as zeros); two consumer warpgroups of 64 rows
-// each run S = Q K^T (wgmma, both from shared memory) and O += P V (P from
+// place; rows past S arrive as zeros); each consumer warpgroup of 64 rows
+// runs S = Q K^T (wgmma, both from shared memory) and O += P V (P from
 // registers, V read through the transpose flag: no transposed copy).  The
-// causal loop bound comes from the tile index, and only the diagonal tile
-// and a ragged last tile are masked.  Registers: S 64 + O HD/2 f32 and the
-// packed P 32 fit the consumers' 240; one block per SM (384 threads).
+// causal loop bound is ceil((q0 + BQ) / BK) key tiles; a consumer skips a
+// key tile wholly past its rows, and masks only a tile that crosses one of
+// its rows' diagonals and a ragged last tile.  Registers: S BK/2 + O HD/2
+// f32 and the packed P BK/4 fit the consumers' 240 (BQ 128: one block per
+// SM, 384 threads) or 232 (BQ 64: 256 threads, two blocks per SM where
+// shared memory allows: see `WsShape`).
 //
 // f32 at every head dim, and bf16 at head dims 16 and 32,
 // `flash_fwd_mma_kernel` (the first design):
@@ -68,14 +73,20 @@ constexpr float kNegInf = -1e30f;
 
 // ============================================================ wgmma
 
-template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+// The tile pairs (block_q, block_k) the wgmma forward is compiled for: BQ
+// query rows a block (BQ / 64 consumer warpgroups) and BK keys a K/V stage,
+// each 64 or 128.  (128, 128) is the default.  The wrapper's
+// `admitted_blocks` (ops/flash_attention.py) states the same set.
+template <int HD, int BQ, int BK>
+__global__ void __launch_bounds__(WsShape<BQ / 64>::kThreads,
+                                  WsShape<BQ / 64>::kBlocksPerSm)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      bf16* __restrict__ o, float* __restrict__ lse, int N,
                      int S, View ov, int causal, float scale_log2) {
-  using L = FwdLayout<HD>;
+  using L = FwdLayout<HD, BQ, BK>;
+  using W = WsShape<BQ / 64>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBars;
@@ -84,37 +95,40 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int q0 = qt * 128;
-  const int n_kt = causal ? qt + 1 : (S + 127) / 128;
+  const int q0 = qt * BQ;
+  // key tiles up to the one holding the block's last row (causal), or S
+  const int n_kt_all = (S + BK - 1) / BK;
+  const int n_kt = causal ? min((q0 + BQ + BK - 1) / BK, n_kt_all) : n_kt_all;
 
-  init_ring_barriers(q_full);
+  init_ring_barriers(q_full, W::kWarps);
 
   if (threadIdx.x < kWg) {
     // Producer: one thread loads Q, then the K/V tile of every key tile up
     // to the causal bound, in the consumers' order.
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::kTile);
+      mbar_expect_tx(q_full, L::kQTile);
       for (int h = 0; h < HD / 64; ++h)
-        tma_load(base + h * L::kBox, &tq, q_full, h * 64, q0, n, b);
+        tma_load(base + h * L::kQBox, &tq, q_full, h * 64, q0, n, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int stage = kt % kStages;
         mbar_wait(empty(stage), ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(stage), 2 * L::kTile);
+        mbar_expect_tx(full(stage), 2 * L::kKTile);
         for (int h = 0; h < HD / 64; ++h) {
-          tma_load(L::k_tile(base, stage) + h * L::kBox, &tk, full(stage),
-                   h * 64, kt * 128, n, b);
-          tma_load(L::v_tile(base, stage) + h * L::kBox, &tv, full(stage),
-                   h * 64, kt * 128, n, b);
+          tma_load(L::k_tile(base, stage) + h * L::kKBox, &tk, full(stage),
+                   h * 64, kt * BK, n, b);
+          tma_load(L::v_tile(base, stage) + h * L::kKBox, &tv, full(stage),
+                   h * 64, kt * BK, n, b);
         }
       }
     }
   } else {
-    // Consumers: warpgroup c owns query rows [64c, 64c + 64) of the tile.
-    setmaxnreg_inc<kConsumerRegs>();
+    // Consumers: warpgroup c owns query rows [r0, r0 + 64) of the tile.
+    setmaxnreg_inc<W::kConsumerRegs>();
     const int c = threadIdx.x / kWg - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int row0 = q0 + 64 * c + 16 * w + lane / 4;
+    const int r0 = q0 + 64 * c;
+    const int row0 = r0 + 16 * w + lane / 4;
     const uint32_t q_rows = base + 64 * c * kRowBytes;
     // the last key each of the thread's rows sees
     const int last0 = causal ? min(row0, S - 1) : S - 1;
@@ -131,13 +145,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // loop for a positive scale stays free of it.
     auto key_loop = [&](auto scale_first) {
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int stage = kt % kStages, k0 = kt * 128;
+        const int stage = kt % kStages, k0 = kt * BK;
         mbar_wait(full(stage), (kt / kStages) & 1);
-        // the causal diagonal, and keys at or past S
-        fwd_tile<HD, decltype(scale_first)::value>(
-            acc, st, q_rows, L::k_tile(base, stage), L::v_tile(base, stage),
-            scale_log2, kNegInf, (causal && kt == qt) || k0 + 128 > S,
-            last0 - k0, last1 - k0);
+        // causal: a key tile wholly past the warpgroup's last row is all
+        // masked for it (BK < BQ leaves one); a tile that crosses some
+        // row's diagonal (more than one when BK < BQ) and a ragged last
+        // tile are masked
+        if (!causal || k0 <= r0 + 63)
+          fwd_tile<HD, decltype(scale_first)::value, BQ, BK>(
+              acc, st, q_rows, L::k_tile(base, stage),
+              L::v_tile(base, stage), scale_log2, kNegInf,
+              (causal && k0 + BK - 1 > r0) || k0 + BK > S, last0 - k0,
+              last1 - k0);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(stage));  // the stage is free
       }
@@ -471,6 +490,7 @@ struct Args {
   View qv, kv, vv, ov;
   int causal;
   float scale_log2;
+  int block_q, block_k;
   cudaStream_t stream;
 };
 
@@ -487,29 +507,48 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int BQ, int BK>
 cudaError_t launch_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = bf16_map(&tq, a.q, a.B, a.N, a.S, HD, a.qv, 128)) !=
+  if ((err = bf16_map(&tq, a.q, a.B, a.N, a.S, HD, a.qv, BQ)) !=
           cudaSuccess ||
-      (err = bf16_map(&tk, a.k, a.B, a.N, a.S, HD, a.kv, 128)) !=
+      (err = bf16_map(&tk, a.k, a.B, a.N, a.S, HD, a.kv, BK)) !=
           cudaSuccess ||
-      (err = bf16_map(&tv, a.v, a.B, a.N, a.S, HD, a.vv, 128)) != cudaSuccess)
+      (err = bf16_map(&tv, a.v, a.B, a.N, a.S, HD, a.vv, BK)) != cudaSuccess)
     return err;
-  const size_t smem = FwdLayout<HD>::kBytes;
-  if ((err = set_smem(flash_fwd_kernel<HD>, smem)) != cudaSuccess) return err;
-  const dim3 grid((a.S + 127) / 128, a.B * a.N);
-  flash_fwd_kernel<HD><<<grid, kWsThreads, smem, a.stream>>>(
-      tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.N, a.S, a.ov, a.causal,
-      a.scale_log2);
+  const size_t smem = FwdLayout<HD, BQ, BK>::kBytes;
+  if ((err = set_smem(flash_fwd_kernel<HD, BQ, BK>, smem)) != cudaSuccess)
+    return err;
+  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.N);
+  flash_fwd_kernel<HD, BQ, BK>
+      <<<grid, WsShape<BQ / 64>::kThreads, smem, a.stream>>>(
+          tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.N, a.S, a.ov,
+          a.causal, a.scale_log2);
   return cudaGetLastError();
+}
+
+// The wgmma kernel at a head dim, for an admitted tile pair.
+template <int HD>
+cudaError_t launch_wgmma_blocks(const Args& a) {
+  switch (a.block_q * 1000 + a.block_k) {
+    case 64064: return launch_wgmma<HD, 64, 64>(a);
+    case 64128: return launch_wgmma<HD, 64, 128>(a);
+    case 128064: return launch_wgmma<HD, 128, 64>(a);
+    case 128128: return launch_wgmma<HD, 128, 128>(a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // dtype 0 (f32) takes the mma.sync kernel at every head dim; dtype 1
 // (bf16) the wgmma kernel at head dims 64 and 128, the mma.sync kernel at
-// 16 and 32.
+// 16 and 32.  The mma.sync kernel admits its own tile only, (64, 64); the
+// wgmma kernel (block_q, block_k) in {64, 128} x {64, 128}.  Any other pair
+// is refused with cudaErrorInvalidValue: nothing is rounded.
 cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
+  const bool wgmma = dtype == 1 && (head_dim == 64 || head_dim == 128);
+  if (!wgmma && (a.block_q != kBlockQ || a.block_k != kBlockK))
+    return cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (head_dim) {
       case 16: return launch_mma<float, 16>(a);
@@ -521,8 +560,8 @@ cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
     switch (head_dim) {
       case 16: return launch_mma<bf16, 16>(a);
       case 32: return launch_mma<bf16, 32>(a);
-      case 64: return launch_wgmma<64>(a);
-      case 128: return launch_wgmma<128>(a);
+      case 64: return launch_wgmma_blocks<64>(a);
+      case 128: return launch_wgmma_blocks<128>(a);
     }
   }
   return cudaErrorInvalidValue;
@@ -530,7 +569,8 @@ cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  block_q and
+// block_k: the tile pair (see `dispatch`).
 extern "C" cudaError_t rt_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* lse, int dtype, int head_dim,
                             int B, int N, int S, long long q_sb, long long q_sn,
@@ -538,12 +578,13 @@ extern "C" cudaError_t rt_flash_fwd(const void* q, const void* k, const void* v,
                             long long k_ss, long long v_sb, long long v_sn,
                             long long v_ss, long long o_sb, long long o_sn,
                             long long o_ss, int causal, float sm_scale,
-                            void* stream) {
+                            int block_q, int block_k, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0) return cudaSuccess;
   const Args a{q, k, v, o, lse, B, N, S,
                View{q_sb, q_sn, q_ss}, View{k_sb, k_sn, k_ss},
                View{v_sb, v_sn, v_ss}, View{o_sb, o_sn, o_ss},
-               causal, sm_scale * kLog2e, static_cast<cudaStream_t>(stream)};
+               causal, sm_scale * kLog2e, block_q, block_k,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, head_dim, a);
 }
 

@@ -8,15 +8,23 @@
 // source, see ops/_build.py), so everything here has internal linkage: it
 // lives in the anonymous namespace of the including translation unit.
 //
-// The design these pieces serve (FlashAttention-3's): a block of three
-// warpgroups.  One thread of the producer warpgroup issues every load
-// (cp.async.bulk.tensor, completion on mbarriers) into a ring of kStages
-// tiles in shared memory with full/empty barriers, then the producer gives
-// its registers up (setmaxnreg.dec 24) to the two consumer warpgroups
-// (setmaxnreg.inc 240), which run every product on wgmma (m64nNk16, f32
-// accumulate) with operands read from shared memory in the 128-byte
-// swizzle that the TMA writes.  wgmma reads a row-major B operand through
-// its transpose flag, so no tile is ever transposed in shared memory.
+// The design these pieces serve (FlashAttention-3's): a block of one
+// producer warpgroup and C consumer warpgroups of 64 rows each (`WsShape`).
+// One thread of the producer issues every load (cp.async.bulk.tensor,
+// completion on mbarriers) into a ring of kStages tiles in shared memory
+// with full/empty barriers, then the producer gives its registers up
+// (setmaxnreg.dec 24) to the consumers (setmaxnreg.inc), which run every
+// product on wgmma (m64nNk16, f32 accumulate) with operands read from
+// shared memory in the 128-byte swizzle that the TMA writes.  wgmma reads
+// a row-major B operand through its transpose flag, so no tile is ever
+// transposed in shared memory.
+//
+// Tile sizes.  The layouts and tile steps take their row counts as
+// template arguments: the rows a block owns (BQ query rows in the forward
+// and dq, BK key rows in dk/dv: C = rows / 64 consumers) and the keys of a
+// forward K/V stage (BK, 64 or 128).  The backward kernels stream 64-row
+// tiles whatever they own.  The defaults (128-row blocks, 128-key forward
+// stages) are the splash kernels' tiles and the flash kernels' default.
 
 #pragma once
 
@@ -39,6 +47,20 @@ constexpr int kStages = 2;              // depth of the TMA ring
 constexpr int kRowBytes = 128;          // a swizzled box row: 64 bf16
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128*24 + 256*240
                                                         // <= 65536
+
+// A warp-specialised block of one producer and C consumer warpgroups.
+// Two consumers (the 128-row blocks) run one block per SM at 24/240
+// registers, as above.  One consumer (a 64-row block) asks for two blocks
+// per SM, so its block keeps 32,768 registers: 128*24 + 128*232 (the
+// entry count is then 128, which setmaxnreg raises to 232).  Shared memory
+// decides whether the second block fits.
+template <int C>
+struct WsShape {
+  static constexpr int kThreads = kWg * (1 + C);
+  static constexpr int kWarps = 4 * C;               // consumer warps
+  static constexpr int kBlocksPerSm = C == 1 ? 2 : 1;
+  static constexpr int kConsumerRegs = C == 1 ? 232 : 240;
+};
 
 struct View {  // element strides of a [B, N, S, H] view, H contiguous
   long long b, n, s;
@@ -105,13 +127,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // Thread 0 of the block initialises the block's barriers: `first` with one
 // arrival (the producer's expect_tx), then full[kStages] with one arrival
-// each and empty[kStages] with one per consumer warp, 8 bytes apart.
-__device__ __forceinline__ void init_ring_barriers(uint32_t first) {
+// each and empty[kStages] with one per consumer warp (`warps` of them), 8
+// bytes apart.
+__device__ __forceinline__ void init_ring_barriers(
+    uint32_t first, uint32_t warps = kConsumerWarps) {
   if (threadIdx.x == 0) {
     mbar_init(first, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(first + 8 * (1 + s), 1);
-      mbar_init(first + 8 * (1 + kStages + s), kConsumerWarps);
+      mbar_init(first + 8 * (1 + kStages + s), warps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -297,20 +321,22 @@ __device__ __forceinline__ void store_bf16(bf16* base, long long ss, int r0,
 // ------------------------------------------------------- the forward tile
 
 // Shared memory of both bf16 forwards from a 1024-byte aligned base: Q
-// [128][HD], then per stage K and V [128][HD], each tile HD / 64 boxes of
-// [128 rows][128 bytes]; then the mbarriers q_full, full[kStages],
+// [BQ][HD], then per stage K and V [BK][HD], each tile HD / 64 boxes of
+// [rows][128 bytes]; then the mbarriers q_full, full[kStages],
 // empty[kStages].
-template <int HD>
+template <int HD, int BQ = 128, int BK = 128>
 struct FwdLayout {
-  static constexpr uint32_t kBox = 128 * kRowBytes;
-  static constexpr uint32_t kTile = kBox * (HD / 64);
-  static constexpr uint32_t kBars = kTile * (1 + 2 * kStages);
+  static constexpr uint32_t kQBox = BQ * kRowBytes;
+  static constexpr uint32_t kQTile = kQBox * (HD / 64);
+  static constexpr uint32_t kKBox = BK * kRowBytes;
+  static constexpr uint32_t kKTile = kKBox * (HD / 64);
+  static constexpr uint32_t kBars = kQTile + 2 * kKTile * kStages;
   static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
   static __device__ __forceinline__ uint32_t k_tile(uint32_t base, int s) {
-    return base + kTile * (1 + 2 * s);
+    return base + kQTile + 2 * kKTile * s;
   }
   static __device__ __forceinline__ uint32_t v_tile(uint32_t base, int s) {
-    return base + kTile * (2 + 2 * s);
+    return k_tile(base, s) + kKTile;
   }
 };
 
@@ -320,8 +346,9 @@ struct Softmax {
   float m0, m1, l0, l1;
 };
 
-// One 128-key tile of the forward for a consumer warpgroup whose 64 query
-// rows start at `q_rows` in the Q tile: s = q k^T (both K-major from
+// One BK-key tile (64 or 128 keys) of the forward for a consumer
+// warpgroup whose 64 query rows start at `q_rows` in the Q tile of a
+// FwdLayout<HD, BQ, BK>: s = q k^T (both K-major from
 // shared memory), the online softmax update in the log2 domain of
 // x = s * scale_log2, then acc += p v with p rounded to bf16 in registers
 // and v row-major read transposed.  When `need_mask`, the keys of the tile
@@ -334,33 +361,33 @@ struct Softmax {
 // MUFU.EX2.  For scale_log2 <= 0 (a flash call may pass any sm_scale)
 // that does not hold: the caller sets kScaleFirst, s is scaled first and
 // the rest runs on x with factor 1.
-template <int HD, bool kScaleFirst = false>
+template <int HD, bool kScaleFirst = false, int BQ = 128, int BK = 128>
 __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
                                          uint32_t q_rows, uint32_t ks,
                                          uint32_t vs, float scale_log2,
                                          float mask_value, bool need_mask,
                                          int lim0, int lim1) {
-  using L = FwdLayout<HD>;
+  using L = FwdLayout<HD, BQ, BK>;
   const int t = threadIdx.x % 4;
-  float s[64];
+  float s[BK / 2];
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss(s, sw128_desc(q_rows + k_step(L::kBox, kk), 16, 1024),
-             sw128_desc(ks + k_step(L::kBox, kk), 16, 1024), kk);
+    wgmma_ss(s, sw128_desc(q_rows + k_step(L::kQBox, kk), 16, 1024),
+             sw128_desc(ks + k_step(L::kKBox, kk), 16, 1024), kk);
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(s);
 
   if constexpr (kScaleFirst) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+    for (int i = 0; i < BK / 2; ++i) s[i] *= scale_log2;
   }
   const float f = kScaleFirst ? 1.f : scale_log2;  // x = s * f
   const float raw_mask = kScaleFirst ? mask_value : mask_value / scale_log2;
   if (need_mask) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
@@ -372,7 +399,7 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
   // online softmax: the 4 lanes of a quad share a row
   float mx0 = raw_mask, mx1 = raw_mask;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -388,7 +415,7 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
   st.m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     s[4 * j] = ex2(fmaf(s[4 * j], f, -mn0));
     s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], f, -mn0));
     s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], f, -mn1));
@@ -406,13 +433,14 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[HD / 2], Softmax& st,
     acc[4 * j + 3] *= alpha1;
   }
 
-  uint32_t p[8][4];
-  to_a_fragments<8>(p, s);
+  uint32_t p[BK / 16][4];
+  to_a_fragments<BK / 16>(p, s);
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_rs_t(acc, p[kk], sw128_desc(vs + kk * 16 * kRowBytes, L::kBox, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs_t(acc, p[kk],
+               sw128_desc(vs + kk * 16 * kRowBytes, L::kKBox, 1024));
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(acc);
@@ -452,12 +480,12 @@ __device__ __forceinline__ void fwd_store(bf16* o, long long ss, float* lse,
 // uniform branch).
 
 // Shared memory of both bf16 dq kernels from a 1024-byte aligned base: Q
-// and dO [128][HD] (resident), then per stage K and V [64][HD], each tile
+// and dO [BQ][HD] (resident), then per stage K and V [64][HD], each tile
 // HD / 64 swizzled boxes; then the mbarriers qdo_full, full[kStages],
 // empty[kStages].
-template <int HD>
+template <int HD, int BQ = 128>
 struct DqLayout {
-  static constexpr uint32_t kQBox = 128 * kRowBytes;
+  static constexpr uint32_t kQBox = BQ * kRowBytes;
   static constexpr uint32_t kQTile = kQBox * (HD / 64);
   static constexpr uint32_t kKBox = 64 * kRowBytes;
   static constexpr uint32_t kKTile = kKBox * (HD / 64);
@@ -473,21 +501,22 @@ struct DqLayout {
 };
 
 // One 64-key tile of dq for a consumer warpgroup whose 64 query rows start
-// at `q_rows` in the Q tile and `do_rows` in the dO tile: s = q k^T and
+// at `q_rows` in the Q tile and `do_rows` in the dO tile of a
+// DqLayout<HD, BQ>: s = q k^T and
 // dp = do v^T in one wgmma group (all four K-major from shared memory);
 // p from the thread's rows' l0 (row r0) and l1 (row r0 + 8), each the
 // row's lse * log2(e); ds = p * (dp - D) * scale with the rows' D d0 and
 // d1, rounded to bf16 in registers; then acc += ds k with k row-major read
 // transposed.  When `need_mask`, the keys of the tile past lim0 (row r0) or
 // lim1 (row r0 + 8), counted from the tile's first key, get p = 0.
-template <int HD>
+template <int HD, int BQ = 128>
 __device__ __forceinline__ void dq_tile(float (&acc)[HD / 2], uint32_t q_rows,
                                         uint32_t do_rows, uint32_t ks,
                                         uint32_t vs, float scale_log2,
                                         float scale, float l0, float l1,
                                         float d0, float d1, bool need_mask,
                                         int lim0, int lim1) {
-  using L = DqLayout<HD>;
+  using L = DqLayout<HD, BQ>;
   const int t = threadIdx.x % 4;
   float s[32], dp[32];
   wgmma_fence();
@@ -532,13 +561,13 @@ __device__ __forceinline__ void dq_tile(float (&acc)[HD / 2], uint32_t q_rows,
 }
 
 // Shared memory of both bf16 dk/dv kernels from a 1024-byte aligned base:
-// K and V [128][HD] (resident), then per stage Q and dO [64][HD], each tile
+// K and V [BK][HD] (resident), then per stage Q and dO [64][HD], each tile
 // HD / 64 swizzled boxes; then per stage lse and D of the query tile (f32
 // [64] each, `stats` bytes from the base); then the mbarriers kv_full,
 // full[kStages], empty[kStages].
-template <int HD>
+template <int HD, int BK = 128>
 struct DkvLayout {
-  static constexpr uint32_t kKBox = 128 * kRowBytes;
+  static constexpr uint32_t kKBox = BK * kRowBytes;
   static constexpr uint32_t kKTile = kKBox * (HD / 64);
   static constexpr uint32_t kQBox = 64 * kRowBytes;
   static constexpr uint32_t kQTile = kQBox * (HD / 64);
@@ -558,7 +587,8 @@ struct DkvLayout {
 };
 
 // One 64-query tile of dk and dv for a consumer warpgroup whose 64 keys
-// start at `k_rows` in the K tile and `v_rows` in the V tile, with the
+// start at `k_rows` in the K tile and `v_rows` in the V tile of a
+// DkvLayout<HD, BK>, with the
 // query tile's Q at `qs`, dO at `dos` and its lse and D in shared memory:
 // s^T = k q^T, p^T, then dv += p^T do and dp^T = v do^T in one wgmma group,
 // ds^T = p^T * (dp^T - D) * scale, then dk += ds^T q (do and q row-major
@@ -566,7 +596,7 @@ struct DkvLayout {
 // `need_mask`, the queries of the tile before lo0 (the thread's key row
 // r0) or lo1 (row r0 + 8), or past hi (every row), counted from the tile's
 // first query, get p = 0.
-template <int HD>
+template <int HD, int BK = 128>
 __device__ __forceinline__ void dkv_tile(float (&acc_k)[HD / 2],
                                          float (&acc_v)[HD / 2],
                                          uint32_t k_rows, uint32_t v_rows,
@@ -575,7 +605,7 @@ __device__ __forceinline__ void dkv_tile(float (&acc_k)[HD / 2],
                                          const float* di_s, float scale_log2,
                                          float scale, bool need_mask,
                                          int lo0, int lo1, int hi) {
-  using L = DkvLayout<HD>;
+  using L = DkvLayout<HD, BK>;
   const int t = threadIdx.x % 4;
   float s[32];
   wgmma_fence();

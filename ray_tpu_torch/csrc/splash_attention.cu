@@ -626,9 +626,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // 128-key compute tile of the map row, in the consumers' order.
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::kTile);
+      mbar_expect_tx(q_full, L::kQTile);
       for (int h = 0; h < HD / 64; ++h)
-        tma_load(base + h * L::kBox, &tq, q_full, h * 64, q0, n, b);
+        tma_load(base + h * L::kQBox, &tq, q_full, h * 64, q0, n, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int i = 0; i < count; ++i) {
@@ -638,11 +638,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           if (!(entry & 1) && tile_kind(q0, 128, k0, 128, off) == 0)
             continue;
           mbar_wait(empty(stage), phase ^ 1);
-          mbar_expect_tx(full(stage), 2 * L::kTile);
+          mbar_expect_tx(full(stage), 2 * L::kKTile);
           for (int h = 0; h < HD / 64; ++h) {
-            tma_load(L::k_tile(base, stage) + h * L::kBox, &tk, full(stage),
+            tma_load(L::k_tile(base, stage) + h * L::kKBox, &tk, full(stage),
                      h * 64, k0, n, b);
-            tma_load(L::v_tile(base, stage) + h * L::kBox, &tv, full(stage),
+            tma_load(L::v_tile(base, stage) + h * L::kKBox, &tv, full(stage),
                      h * 64, k0, n, b);
           }
           if (++stage == kStages) {

@@ -30,12 +30,26 @@ Forward and backward are registered as the custom ops
 launch is invisible to PyTorch's dispatcher, and a selective-checkpoint
 policy (the GPT's ``attn`` remat policies) can see, and save, the
 attention output only through a registered op.
+
+Tiles.  One pair ``(block_q, block_k)`` steers all three kernels, as in the
+reference: the forward's query rows a block and keys a K/V stage, the rows
+dq owns (``block_q``) and the keys dk/dv owns (``block_k``); the backward
+kernels stream 64-row tiles whatever the pair.  ``admitted_blocks(dtype,
+H)`` states which pairs the card's kernels take ({64, 128}^2 for the bf16
+wgmma kernels at head dims 64 and 128, only (64, 64) for the mma.sync
+kernels); any other pair on a CUDA tensor raises ``ValueError``.  The plain
+versions take any pair.  A call with ``block_q``/``block_k`` None resolves
+them as the reference's ``_resolve`` does: the caller's explicit value, the
+in-process ``_TUNED`` memo (``tune_flash_blocks``), the persistent autotune
+cache, then ``_default_blocks``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -45,11 +59,17 @@ from ray_tpu_torch.ops import _build
 _NEG_INF = -1e30
 _DEFAULT_BLOCK = 128           # the plain version's block size
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' template instantiations
+WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims of the wgmma kernels
+# The tile pairs (block_q, block_k) each kernel family is compiled for
+# (csrc/flash_fwd.cu and csrc/flash_bwd.cu `dispatch`), default first.
+WGMMA_BLOCKS = ((128, 128), (128, 64), (64, 128), (64, 64))
+MMA_BLOCKS = ((64, 64),)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SOURCE = "flash_fwd.cu"
 _BWD_SOURCE = "flash_bwd.cu"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TAIL = [_I, ctypes.c_float, _P]       # causal, sm_scale, stream
+# causal, sm_scale, block_q, block_k, stream
+_TAIL = [_I, ctypes.c_float, _I, _I, _P]
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_L] * 12 + _TAIL
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 5 + [_L] * 15 + _TAIL
 _DKV_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 18 + _TAIL
@@ -84,6 +104,55 @@ def _bnsh(x: torch.Tensor, layout: str) -> torch.Tensor:
 
 def _blocks(S: int, block_q: Optional[int], block_k: Optional[int]):
     return min(block_q or _DEFAULT_BLOCK, S), min(block_k or _DEFAULT_BLOCK, S)
+
+
+def admitted_blocks(dtype, H: int) -> Tuple[Tuple[int, int], ...]:
+    """The (block_q, block_k) pairs the card's kernels take at ``dtype`` and
+    head dim ``H``, the default first: every pair of {64, 128} for the
+    bf16 wgmma kernels (H 64 and 128), only (64, 64) for the mma.sync
+    kernels (f32 at every head dim, bf16 at H 16 and 32), none where no
+    kernel runs."""
+    if dtype == torch.bfloat16 and H in WGMMA_HEAD_DIMS:
+        return WGMMA_BLOCKS
+    if dtype in _DTYPE_CODES and H in HEAD_DIMS:
+        return MMA_BLOCKS
+    return ()
+
+
+def _check_blocks(dtype, H: int, block_q: int, block_k: int):
+    """Refuse a pair the card's kernels were not compiled for; nothing is
+    rounded and nothing falls back."""
+    allowed = admitted_blocks(dtype, H)
+    if (block_q, block_k) not in allowed:
+        raise ValueError(
+            f"flash kernel at {dtype}, head dim {H} takes (block_q, "
+            f"block_k) in {list(allowed)}, not ({block_q}, {block_k})")
+
+
+def _default_blocks(S: int, H: int, dtype=torch.bfloat16,
+                    device="cpu") -> Tuple[int, int]:
+    """The pair a call takes when nothing else names one (the reference's
+    per-shape heuristic): on the card the kernel family's default (the
+    first of ``admitted_blocks``), on the CPU the plain versions' 128
+    capped at S.  ``RT_FLASH_BLOCK_Q`` / ``RT_FLASH_BLOCK_K`` override
+    either; on the card the result must be admitted."""
+    env_q = int(os.environ.get("RT_FLASH_BLOCK_Q", 0) or 0)
+    env_k = int(os.environ.get("RT_FLASH_BLOCK_K", 0) or 0)
+    if torch.device(device).type != "cuda":
+        return min(env_q or _DEFAULT_BLOCK, S), min(env_k or _DEFAULT_BLOCK, S)
+    allowed = admitted_blocks(dtype, H)
+    if not allowed:         # no kernel takes this call; its checks say why
+        return _DEFAULT_BLOCK, _DEFAULT_BLOCK
+    pair = (env_q or allowed[0][0], env_k or allowed[0][1])
+    if env_q or env_k:
+        _check_blocks(dtype, H, *pair)
+    return pair
+
+
+def _admits(device, dtype, H: int, block_q: int, block_k: int) -> bool:
+    if torch.device(device).type == "cuda":
+        return (block_q, block_k) in admitted_blocks(dtype, H)
+    return block_q > 0 and block_k > 0
 
 
 def _causal_mask(qs: int, qe: int, ks: int, ke: int, device) -> torch.Tensor:
@@ -320,11 +389,20 @@ def _scale(sm_scale: Optional[float], H: int) -> float:
     return float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(H))
 
 
+def _count_tile(kernel: str, block_q: int, block_k: int):
+    key = (kernel, block_q, block_k)
+    flash_attention.tile_launches[key] += 1
+
+
 def _launch_fwd(q, k, v, causal: bool, sm_scale: Optional[float],
-                layout: str):
+                layout: str, block_q: int = _DEFAULT_BLOCK,
+                block_k: int = _DEFAULT_BLOCK):
+    """o and lse by ``rt_flash_fwd`` at the tile pair (block_q, block_k),
+    which must be admitted."""
     _check_kernel_inputs(q, k, v)
     qb, kb, vb = (_bnsh(x, layout) for x in (q, k, v))
     B, N, S, H = qb.shape
+    _check_blocks(q.dtype, H, block_q, block_k)
     scale = _scale(sm_scale, H)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ob = _bnsh(o, layout)
@@ -335,9 +413,11 @@ def _launch_fwd(q, k, v, causal: bool, sm_scale: Optional[float],
         err = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ob.data_ptr(),
                  lse.data_ptr(), _DTYPE_CODES[q.dtype], H, B, N, S,
                  *qb.stride()[:3], *kb.stride()[:3], *vb.stride()[:3],
-                 *ob.stride()[:3], int(causal), scale, stream)
+                 *ob.stride()[:3], int(causal), scale, block_q, block_k,
+                 stream)
     _raise_on_error(err, lib, "flash_fwd")
     flash_attention.launches += 1
+    _count_tile("fwd", block_q, block_k)
     return o, lse
 
 
@@ -369,9 +449,11 @@ def _stats_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
-               layout: str) -> torch.Tensor:
-    """dq by ``rt_flash_bwd_dq`` (inputs checked by the caller; lse and
-    delta f32 [B*N, S], or already in the rows of ``_stats_rows``)."""
+               layout: str, block_q: int = _DEFAULT_BLOCK,
+               block_k: int = _DEFAULT_BLOCK) -> torch.Tensor:
+    """dq by ``rt_flash_bwd_dq`` (inputs and the admitted pair checked by
+    the caller; lse and delta f32 [B*N, S], or already in the rows of
+    ``_stats_rows``); the kernel owns ``block_q`` query rows a block."""
     lse, delta = _stats_rows(lse), _stats_rows(delta)
     ptrs, shape, strides = _bwd_launch_args(q, k, v, do, lse, delta, layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -380,15 +462,19 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*ptrs, dqb.data_ptr(), *shape, *strides, *dqb.stride()[:3],
-                 int(causal), scale, stream)
+                 int(causal), scale, block_q, block_k, stream)
     _raise_on_error(err, lib, "flash_bwd_dq")
     flash_attention.dq_launches += 1
+    _count_tile("dq", block_q, block_k)
     return dq
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
-                layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk and dv by ``rt_flash_bwd_dkv`` (as ``_launch_dq``)."""
+                layout: str, block_q: int = _DEFAULT_BLOCK,
+                block_k: int = _DEFAULT_BLOCK
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk and dv by ``rt_flash_bwd_dkv`` (as ``_launch_dq``); the kernel
+    owns ``block_k`` key rows a block."""
     lse, delta = _stats_rows(lse), _stats_rows(delta)
     ptrs, shape, strides = _bwd_launch_args(q, k, v, do, lse, delta, layout)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -399,19 +485,23 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*ptrs, dkb.data_ptr(), dvb.data_ptr(), *shape, *strides,
                  *dkb.stride()[:3], *dvb.stride()[:3], int(causal), scale,
-                 stream)
+                 block_q, block_k, stream)
     _raise_on_error(err, lib, "flash_bwd_dkv")
     flash_attention.dkv_launches += 1
+    _count_tile("dkv", block_q, block_k)
     return dk, dv
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal: bool,
-                sm_scale: Optional[float], layout: str):
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, block_q: int,
+                block_k: int, sm_scale: Optional[float], layout: str):
     _check_kernel_inputs(q, k, v, o=o, do=do)
+    _check_blocks(q.dtype, q.shape[-1], block_q, block_k)
     delta = _delta(o, do, layout)
     scale = _scale(sm_scale, q.shape[-1])
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, layout)
-    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, layout)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, layout, block_q,
+                    block_k)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, layout,
+                         block_q, block_k)
     return dq, dk, dv
 
 
@@ -421,7 +511,7 @@ def _flash_fwd_impl(q, k, v, causal, block_q, block_k, sm_scale, layout):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, block_q, block_k,
                                          sm_scale, layout)
-    return _launch_fwd(q, k, v, causal, sm_scale, layout)
+    return _launch_fwd(q, k, v, causal, sm_scale, layout, block_q, block_k)
 
 
 _flash_fwd_op = torch.library.custom_op(
@@ -441,7 +531,8 @@ def _flash_bwd_op(q, k, v, o, lse, do, causal, block_q, block_k, sm_scale,
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                              block_q, block_k, sm_scale,
                                              layout)
-    return _launch_bwd(q, k, v, o, lse, do, causal, sm_scale, layout)
+    return _launch_bwd(q, k, v, o, lse, do, causal, block_q, block_k,
+                       sm_scale, layout)
 
 
 def _fwd_setup_context(ctx, inputs, output):
@@ -466,6 +557,119 @@ torch.library.register_autograd("ray_tpu_torch::flash_fwd", _fwd_backward,
 FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_fwd.default
 
 
+# ------------------------------------------------------ tile resolution
+
+# (backend, B, S, N, H, dtype, causal) -> (block_q, block_k); filled by
+# tune_flash_blocks and consulted when callers pass block_q/block_k = None.
+_TUNED: dict = {}
+
+# (backend, shape key) pairs whose autotune-cache consultation already
+# happened (and was counted): repeat _resolve calls for the same shape skip
+# the counters so the hot path doesn't inflate hit counts per call.
+_CACHE_CONSULTED: set = set()
+
+
+def _shape(q, layout: str):
+    """(B, S, N, H) of q in its layout."""
+    if layout == "bnsh":
+        B, N, S, H = q.shape
+    else:
+        B, S, N, H = q.shape
+    return B, S, N, H
+
+
+def _cached_blocks(B, S, N, H, dtype, causal, device="cpu"):
+    """Best (block_q, block_k) from the persistent autotune cache for
+    ``device``'s backend, or None: also for a record whose pair is not two
+    ints the device's kernels admit.  It never raises into the kernel
+    call path, as the reference's does not: the cache guards its own file
+    reads, and a record's config is checked here, not trusted."""
+    from ray_tpu_torch.autotune.cache import (attention_key,
+                                              backend_fingerprint, get_cache)
+    key = attention_key(B, S, N, H, dtype, causal)
+    backend = backend_fingerprint(device)
+    first = (backend, key) not in _CACHE_CONSULTED
+    if first:
+        _CACHE_CONSULTED.add((backend, key))
+    rec = get_cache().lookup("flash_attention", key, backend=backend,
+                             count=first)
+    cfg = rec.get("config") if isinstance(rec, dict) else None
+    if not isinstance(cfg, dict):
+        return None
+    bq, bk = cfg.get("block_q"), cfg.get("block_k")
+    if (isinstance(bq, int) and isinstance(bk, int)
+            and _admits(device, dtype, H, bq, bk)):
+        return bq, bk
+    return None
+
+
+def _resolve(q, causal: bool, block_q: Optional[int],
+             block_k: Optional[int], layout: str) -> Tuple[int, int]:
+    """The pair a call runs at: the caller's explicit values, then the
+    ``_TUNED`` memo, the persistent cache and ``_default_blocks``, in the
+    reference's order; a caller's value wins over the resolved one for its
+    own half."""
+    if block_q is None or block_k is None:
+        from ray_tpu_torch.autotune.cache import (backend_fingerprint,
+                                                  canon_dtype)
+        B, S, N, H = _shape(q, layout)
+        key = (backend_fingerprint(q.device), B, S, N, H,
+               canon_dtype(q.dtype), bool(causal))
+        bq, bk = (_TUNED.get(key)
+                  or _cached_blocks(B, S, N, H, q.dtype, causal, q.device)
+                  or _default_blocks(S, H, q.dtype, q.device))
+        block_q = block_q or bq
+        block_k = block_k or bk
+    return int(block_q), int(block_k)
+
+
+def tune_flash_blocks(B, S, N, H, dtype=torch.bfloat16, causal=True,
+                      candidates=None, steps=3, device=None):
+    """Time fwd+bwd for each (block_q, block_k) candidate pair on
+    ``device`` (default: the card), persist the winner to the shared
+    autotune cache and record it in ``_TUNED`` for later block_q=None
+    calls in this process.  ``candidates``: block sizes whose pairs are
+    swept, kept where the device's kernels admit them (None: every
+    admitted pair on the card, the plain versions' candidates on the CPU).
+
+    Returns ((block_q, block_k), best_seconds_per_step); the time is None
+    when the answer came from a cache (the process-local ``_TUNED`` or the
+    persistent file) rather than a fresh sweep, as in the reference."""
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.autotune import search as _search
+    from ray_tpu_torch.autotune.cache import (attention_key,
+                                              backend_fingerprint,
+                                              canon_dtype, get_cache)
+    dev = resolve_device(device)
+    dtype = getattr(torch, canon_dtype(dtype))
+    key = (backend_fingerprint(dev), B, S, N, H, canon_dtype(dtype),
+           bool(causal))
+    if key in _TUNED:
+        return _TUNED[key], None
+    ckey = attention_key(B, S, N, H, dtype, causal)
+    cached = get_cache().lookup("flash_attention", ckey,
+                                backend=backend_fingerprint(dev)) is not None
+    if candidates is None:
+        cands = _search.flash_candidates(_search.parse_key(ckey), dev)
+    else:
+        cands = [{"block_q": bq, "block_k": bk}
+                 for bq in candidates for bk in candidates
+                 if bq <= S and bk <= S and _admits(dev, dtype, H, bq, bk)]
+    rec = _search.tune("flash_attention", ckey, device=dev,
+                       candidates=cands, iters=steps) if cands else None
+    default = _default_blocks(S, H, dtype, dev)
+    if rec is None or not rec.get("config"):
+        best, best_t = default, None
+    else:
+        cfg = rec["config"]
+        best = (int(cfg.get("block_q", 0)) or default[0],
+                int(cfg.get("block_k", 0)) or default[1])
+        best_t = None if cached or rec.get("ms") is None \
+            else rec["ms"] / 1e3
+    _TUNED[key] = best
+    return best, best_t
+
+
 # ------------------------------------------------------------- public API
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
@@ -475,12 +679,14 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                         layout: str = "bsnh"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse [B*N, S] f32), differentiable in q, k and v.  CUDA tensors
-    run the Hopper kernels (which pick their own tiles; ``block_q``/
-    ``block_k`` steer only the plain versions), CPU tensors the plain
-    versions.  The call goes through the registered op only when autograd
-    records it: the op's dispatch costs host time (tens of µs) that the
-    host-bound inference path does not need to pay."""
+    run the Hopper kernels at the pair (block_q, block_k) (None: resolved
+    by ``_resolve``; on the card it must be one of ``admitted_blocks``),
+    CPU tensors the plain versions, which take any pair.  The backward
+    runs at the same pair.  The call goes through the registered op only
+    when autograd records it: the op's dispatch costs host time (tens of
+    µs) that the host-bound inference path does not need to pay."""
     _check_qkv(q, k, v, layout)
+    block_q, block_k = _resolve(q, causal, block_q, block_k, layout)
     args = (q, k, v, causal, block_q, block_k, sm_scale, layout)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -496,12 +702,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's residuals and the output gradient
     ``do``: the backward kernels on CUDA tensors, the plain version on CPU
-    tensors.  Autograd calls this through ``flash_attention``."""
+    tensors, at the pair ``_resolve`` gives.  Autograd calls this through
+    ``flash_attention``."""
     _check_qkv(q, k, v, layout)
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, q "
                              f"{tuple(q.shape)}")
+    block_q, block_k = _resolve(q, causal, block_q, block_k, layout)
     return _flash_bwd_op(q, k, v, o, lse, do, causal, block_q, block_k,
                          sm_scale, layout)
 
@@ -512,10 +720,13 @@ def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None,
                     layout: str = "bsnh") -> torch.Tensor:
     """Fused attention; returns o in the input layout and dtype, and
-    differentiates through the flash backward.  Launch counts of the CUDA
-    kernels: ``flash_attention.launches`` (forward),
-    ``flash_attention.dq_launches`` and ``flash_attention.dkv_launches``
-    (backward)."""
+    differentiates through the flash backward.  ``block_q``/``block_k``
+    default to ``_resolve``'s pair (a ``tune_flash_blocks`` result or a
+    cache record where one exists).  Launch counts of the CUDA kernels:
+    ``flash_attention.launches`` (forward), ``flash_attention.dq_launches``
+    and ``flash_attention.dkv_launches`` (backward), and per tile
+    ``flash_attention.tile_launches[(kernel, block_q, block_k)]`` with
+    kernel "fwd", "dq" or "dkv"."""
     return flash_attention_fwd(q, k, v, causal, block_q, block_k, sm_scale,
                                layout)[0]
 
@@ -523,3 +734,4 @@ def flash_attention(q, k, v, causal: bool = True,
 flash_attention.launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
+flash_attention.tile_launches = collections.Counter()

@@ -3,6 +3,8 @@
 top-1 once GPT-2-small's attention carries the answer?
 
     python3 scripts/torch_top1_induction.py
+    python3 scripts/torch_top1_induction.py --paths dense,flash --lr 3e-4 \
+        --clip 1.0 --text-rows 0 --copy-rows 16
 
 Trains GPT-2-small (bf16, remat "dots", blocked cross-entropy, AdamW) on
 the copy corpus of ``chip_smoke.py``'s ``top1_trained`` phase for many
@@ -21,10 +23,18 @@ error and f32 top-2 gaps over all logits and over the 256 byte logits, and
 99% of the positions).  One JSON line with the card's name and power
 limit, then per training a phase line and a ``{"trained_with": ...}``
 summary.  Needs a CUDA card: it exits nonzero without one.
+
+The options set the recipe; with none it is the first run's (3,000 steps,
+lr 1e-3 after 100 warmup steps, no clipping, 8 text and 8 copy rows,
+flash then dense).  ``--text-rows 0`` trains on the seeded copy corpus
+alone, a corpus that does not change with the repository's documents;
+``--clip`` clips the global grad norm before each AdamW step; ``--paths``
+names the attention paths to train, in order.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -37,7 +47,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, LR, WARMUP, EVAL_ROWS = 3000, 1e-3, 100, 16
 
 
-def main() -> int:
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--lr", type=float, default=LR)
+    ap.add_argument("--warmup", type=int, default=WARMUP)
+    ap.add_argument("--clip", type=float, default=None,
+                    help="clip the global grad norm to this (default: no "
+                    "clipping)")
+    ap.add_argument("--text-rows", type=int, default=8)
+    ap.add_argument("--copy-rows", type=int, default=8)
+    ap.add_argument("--eval-rows", type=int, default=EVAL_ROWS)
+    ap.add_argument("--paths", default="flash,dense",
+                    help="attention paths to train, in order")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_top1_induction: no CUDA device", file=sys.stderr)
@@ -50,16 +77,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(json.dumps({"card": chip_smoke.nvidia_smi_line(),
                       "torch": torch.__version__}), flush=True)
-    for attention in ("flash", "dense"):
+    rows = args.text_rows + args.copy_rows
+    for attention in args.paths.split(","):
         cfg = dataclasses.replace(GPTConfig.gpt2_small(),
                                   attention=attention, remat=True,
                                   remat_policy="dots", ce_block=256)
         fields = chip_smoke.phase_top1_trained(
-            dev, cfg, None, B=8, steps=STEPS, lr=LR, warmup=WARMUP,
-            copy_rows=8, eval_rows=EVAL_ROWS)
+            dev, cfg, None, B=args.text_rows, steps=args.steps, lr=args.lr,
+            warmup=args.warmup, copy_rows=args.copy_rows,
+            eval_rows=args.eval_rows, clip=args.clip)
         print(json.dumps({"trained_with": attention,
                           "c1_closed": fields["c1_closed"],
-                          "steps": STEPS, "tokens": STEPS * 16 * 1024,
+                          "copy_trained": fields["copy_task"]["trained"],
+                          "steps": args.steps,
+                          "tokens": args.steps * rows * 1024,
                           "train_s": fields["train_s"]}), flush=True)
     return 0
 

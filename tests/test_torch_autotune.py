@@ -291,11 +291,18 @@ def test_tune_attention_times_splash_where_it_applies(cache_file):
 
 
 def test_card_candidates():
-    """On the card flash has one candidate (the kernel picks its tiles) and
-    splash the reference's 3 x 3 grid; at H=64 splash has none."""
+    """On the card flash sweeps every (block_q, block_k) pair its kernels
+    admit ({64, 128}^2 in bf16 at H 64 and 128, (64, 64) for the mma.sync
+    kernels) and splash the reference's 3 x 3 grid; at H=64 splash has
+    none."""
     cuda = torch.device("cuda", 0)
     kd = search.parse_key(attention_key(2, 4096, 32, 128, "bfloat16"))
-    assert search.flash_candidates(kd, cuda) == [{}]
+    square = [{"block_q": bq, "block_k": bk}
+              for bq, bk in ((128, 128), (128, 64), (64, 128), (64, 64))]
+    assert search.flash_candidates(kd, cuda) == square
+    kd32 = search.parse_key(attention_key(2, 4096, 32, 128, "float32"))
+    assert search.flash_candidates(kd32, cuda) == [{"block_q": 64,
+                                                    "block_k": 64}]
     cands = search.splash_candidates(kd, cuda)
     assert len(cands) == 9
     assert cands == jsearch.splash_candidates(kd, False)

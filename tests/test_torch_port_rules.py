@@ -37,10 +37,12 @@ def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
         tests / f"{name}.py" for name in (
             "test_torch_flash_kernel", "test_torch_flash_bwd_kernel",
+            "test_torch_flash_tiles_kernel",
             "test_torch_splash_kernel", "test_torch_llama_kernel",
             "test_torch_moe_kernel", "_torch_gang", "_torch_runtime",
             "test_torch_core_basic", "test_torch_actors",
             "test_torch_placement_group", "test_torch_wire",
+            "test_torch_lease_wait",
             "test_torch_shm_hygiene", "test_torch_serialization",
             "test_torch_gpu_resources", "test_torch_runtime_gpu",
             "test_torch_cancel", "test_torch_config", "test_torch_forkserver",
