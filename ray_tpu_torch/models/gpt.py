@@ -54,6 +54,7 @@ from ray_tpu_torch.parallel.sharding import (LogicalAxisRules, P,
                                              logical_sharding, per_rank,
                                              shard_map,
                                              with_logical_constraint)
+from ray_tpu_torch.util.tracing import local_span
 
 Params = Dict[str, Any]
 
@@ -733,7 +734,13 @@ def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer,
     place.  ``grad_norm`` is the global L2 norm of the gradients, not
     clipped (``optax.global_norm``).  Sharded params (DTensors) get their
     grads reduced to their own placements before the update; the
-    metrics are then whole tensors.  The metrics stay on the device."""
+    metrics are then whole tensors.  The metrics stay on the device.
+
+    Spans (``util/tracing.py``'s ``local_span``): ``train.forward``
+    around ``loss_fn``, ``train.backward`` around ``loss.backward()``,
+    ``train.optimizer`` around the grads' placement, the global norm and
+    ``optimizer.step()``.  They time the host's launches; nothing in the
+    step waits for the card."""
     if loss_fn is None:
         def loss_fn(params, batch):
             return gpt_loss(params, batch, cfg, rules, mesh)
@@ -744,12 +751,15 @@ def make_train_step(cfg: GPTConfig, optimizer: torch.optim.Optimizer,
         tokens = batch["tokens"]
         if not isinstance(tokens, DTensor):
             tokens = tokens.to(params["wte"].device)
-        loss = loss_fn(params, {"tokens": tokens})
-        loss.backward()
-        leaves = list(_leaves(params))
-        _place_grads(leaves)
-        grad_norm = _global_norm([p.grad for p in leaves])
-        optimizer.step()
+        with local_span("train.forward"):
+            loss = loss_fn(params, {"tokens": tokens})
+        with local_span("train.backward"):
+            loss.backward()
+        with local_span("train.optimizer"):
+            leaves = list(_leaves(params))
+            _place_grads(leaves)
+            grad_norm = _global_norm([p.grad for p in leaves])
+            optimizer.step()
         loss = loss.detach()
         if isinstance(loss, DTensor):
             loss = loss.full_tensor()

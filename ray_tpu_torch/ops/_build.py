@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_builds = 0       # nvcc builds finished in this process
 
 
 def find_nvcc() -> str:
@@ -76,6 +78,7 @@ def _ptxas_lines(log: str) -> List[str]:
 
 
 def _compile(source: str, out: str) -> dict:
+    global _builds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -87,8 +90,17 @@ def _compile(source: str, out: str) -> dict:
         raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):"
                            f"\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    with _count_lock:
+        _builds += 1
     return {"source": source, "nvcc_s": secs,
             "ptxas": _ptxas_lines(proc.stdout + proc.stderr)}
+
+
+def build_count() -> int:
+    """The nvcc builds this process has finished; a library found built
+    counts none.  A run reads it before and after a window to show a
+    rebuild inside it."""
+    return _builds
 
 
 def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, dict]:

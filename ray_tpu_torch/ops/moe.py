@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from ray_tpu_torch.parallel.collectives import all_gather, axis_index
 from ray_tpu_torch.parallel.sharding import per_rank
+from ray_tpu_torch.util.tracing import local_span
 
 
 def moe_capacity(S: int, top_k: int, num_experts: int,
@@ -117,36 +118,42 @@ def moe_mlp(x, p, *, top_k: int, capacity_factor: float,
     the sharding constraints (identity when unsharded or inside
     shard_map).  ``ep_axis`` selects the shard_map mode (see the module
     docstring).  The GELU is tanh-approximated, as ``jax.nn.gelu``'s
-    default.  Returns (y [B,S,D], aux_loss)."""
-    if lc is None:
-        def lc(a, ax):
-            return a
-    B, S, D = x.shape
-    E = p["router"].shape[-1]
-    dt = x.dtype
-    capacity = moe_capacity(S, top_k, E, capacity_factor)
+    default.  Returns (y [B,S,D], aux_loss).
 
-    dispatch, combine, aux = moe_router(
-        x, p["router"].float(), top_k=top_k, capacity=capacity)
+    The span ``moe.ffn`` (``util/tracing.py``'s ``local_span``) covers
+    the whole FFN: router, dispatch, experts and combine.  Under remat it
+    opens again where autograd recomputes the block; the FFN's backward
+    kernels are launched after it has closed and are not in it."""
+    with local_span("moe.ffn"):
+        if lc is None:
+            def lc(a, ax):
+                return a
+        B, S, D = x.shape
+        E = p["router"].shape[-1]
+        dt = x.dtype
+        capacity = moe_capacity(S, top_k, E, capacity_factor)
 
-    if ep_axis is not None:
-        # Slice the dispatch tensor to this member's experts BEFORE the
-        # contraction: 1/ep of the dispatch FLOPs.
-        e_local = p["wi"].shape[0]
-        idx = axis_index(ep_axis)
-        disp_local = dispatch[:, :, idx * e_local:(idx + 1) * e_local]
-        xe = torch.einsum("bsd,bsec->ebcd", x, disp_local.to(dt))
-    else:
-        xe = torch.einsum("bsd,bsec->ebcd", x, dispatch.to(dt))
-        xe = lc(xe, ("expert", "batch", None, "embed"))
-    h = torch.einsum("ebcd,edm->ebcm", xe, p["wi"].to(dt)) \
-        + p["bi"].to(dt)[:, None, None, :]
-    h = lc(h, ("expert", "batch", None, "mlp"))
-    h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("ebcm,emd->ebcd", h, p["wo"].to(dt)) \
-        + p["bo"].to(dt)[:, None, None, :]
-    ye = lc(ye, ("expert", "batch", None, "embed"))
-    if ep_axis is not None:
-        ye = all_gather(ye, ep_axis, axis=0, tiled=True)
-    y = torch.einsum("ebcd,bsec->bsd", ye, combine.to(dt))
-    return lc(y, ("batch", "seq", "embed")), aux
+        dispatch, combine, aux = moe_router(
+            x, p["router"].float(), top_k=top_k, capacity=capacity)
+
+        if ep_axis is not None:
+            # Slice the dispatch tensor to this member's experts BEFORE the
+            # contraction: 1/ep of the dispatch FLOPs.
+            e_local = p["wi"].shape[0]
+            idx = axis_index(ep_axis)
+            disp_local = dispatch[:, :, idx * e_local:(idx + 1) * e_local]
+            xe = torch.einsum("bsd,bsec->ebcd", x, disp_local.to(dt))
+        else:
+            xe = torch.einsum("bsd,bsec->ebcd", x, dispatch.to(dt))
+            xe = lc(xe, ("expert", "batch", None, "embed"))
+        h = torch.einsum("ebcd,edm->ebcm", xe, p["wi"].to(dt)) \
+            + p["bi"].to(dt)[:, None, None, :]
+        h = lc(h, ("expert", "batch", None, "mlp"))
+        h = F.gelu(h, approximate="tanh")
+        ye = torch.einsum("ebcm,emd->ebcd", h, p["wo"].to(dt)) \
+            + p["bo"].to(dt)[:, None, None, :]
+        ye = lc(ye, ("expert", "batch", None, "embed"))
+        if ep_axis is not None:
+            ye = all_gather(ye, ep_axis, axis=0, tiled=True)
+        y = torch.einsum("ebcd,bsec->bsd", ye, combine.to(dt))
+        return lc(y, ("batch", "seq", "embed")), aux

@@ -16,6 +16,19 @@ single-thread executor, so the event loop keeps serving admissions and
 cancellations while the card computes, and the one lane keeps the pool
 updates (made in place) ordered.
 
+Spans (``util/tracing.py``'s ``local_span``, kept by its in-process
+recorder alone): ``engine.prefill`` (attribute ``prompt_len``) and
+``engine.decode`` (``active``, the live slots) on the executor thread,
+each ending in the host's read of its tokens, so nothing is queued to the
+card when one ends; ``engine.schedule`` (retire, deadline
+sweep, admission, the step's token, position and table arrays) and
+``engine.deliver`` (handing a prefill's or a step's tokens to their
+queues) on the loop's thread.  None of them spans an ``await``, so the
+four never overlap in time.  ``torch.profiler`` records no op from a
+thread that existed before it started, and the executor's thread starts
+at the first request, so in a traced window these spans are the only
+record of the engine's own calls.
+
 The model is GPT or LLaMA (``EngineConfig.model``); both prefill dense and
 decode against the paged pools.  An expired deadline raises
 ``serve.resilience.DeadlineExceeded``, a plain ``Exception`` as in the
@@ -47,6 +60,7 @@ from ray_tpu_torch.models.llama import (LlamaConfig, llama_decode_step,
 from ray_tpu_torch.serve import resilience
 from ray_tpu_torch.serve.engine.kv_cache import PageAllocator, table_row
 from ray_tpu_torch.serve.resilience import DeadlineExceeded
+from ray_tpu_torch.util.tracing import local_span
 
 logger = logging.getLogger(__name__)
 
@@ -266,41 +280,48 @@ class InferenceEngine:
 
     def _prefill(self, seq: _Sequence) -> int:
         """Executor side: prefill one sequence, return its first token."""
-        toks = np.zeros((1, self.config.max_prompt_len), np.int64)
-        toks[0, : len(seq.prompt)] = seq.prompt
-        dev = self.device
-        logits, self._k_pages, self._v_pages = self._prefill_fn(
-            self._params, self.model_config, torch.from_numpy(toks).to(dev),
-            len(seq.prompt), self._k_pages, self._v_pages,
-            torch.from_numpy(seq.row[None]).to(dev))
-        return int(torch.argmax(logits[0]))
+        with local_span("engine.prefill", {"prompt_len": len(seq.prompt)}):
+            toks = np.zeros((1, self.config.max_prompt_len), np.int64)
+            toks[0, : len(seq.prompt)] = seq.prompt
+            dev = self.device
+            logits, self._k_pages, self._v_pages = self._prefill_fn(
+                self._params, self.model_config,
+                torch.from_numpy(toks).to(dev), len(seq.prompt),
+                self._k_pages, self._v_pages,
+                torch.from_numpy(seq.row[None]).to(dev))
+            return int(torch.argmax(logits[0]))
 
     def _decode(self, token: np.ndarray, pos: np.ndarray,
-                tables: np.ndarray) -> np.ndarray:
-        """Executor side: one batched decode step, next token per slot."""
-        dev = self.device
-        logits, self._k_pages, self._v_pages = self._decode_fn(
-            self._params, self.model_config, torch.from_numpy(token).to(dev),
-            torch.from_numpy(pos).to(dev), self._k_pages, self._v_pages,
-            torch.from_numpy(tables).to(dev))
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+                tables: np.ndarray, active: int) -> np.ndarray:
+        """Executor side: one batched decode step over ``active`` live
+        slots, next token per slot."""
+        with local_span("engine.decode", {"active": active}):
+            dev = self.device
+            logits, self._k_pages, self._v_pages = self._decode_fn(
+                self._params, self.model_config,
+                torch.from_numpy(token).to(dev),
+                torch.from_numpy(pos).to(dev), self._k_pages, self._v_pages,
+                torch.from_numpy(tables).to(dev))
+            return torch.argmax(logits, dim=-1).cpu().numpy()
 
     async def _run_loop(self):
         loop = asyncio.get_running_loop()
         cfg = self.config
         while True:
             try:
-                for seq in [s for s in self._active.values() if s.cancelled]:
-                    self._retire(seq, done=False)
-                # Deadline sweep: an expired sequence stops decoding now;
-                # its slot and pages free for live requests.
-                for seq in [s for s in self._active.values()
-                            if self._deadline_expired(s)]:
-                    self._retire(seq, done=False)
-                    if not seq.cancelled:
-                        seq.queue.put_nowait(DeadlineExceeded(
-                            "deadline expired while decoding"))
-                self._admit()
+                with local_span("engine.schedule"):
+                    for seq in [s for s in self._active.values()
+                                if s.cancelled]:
+                        self._retire(seq, done=False)
+                    # Deadline sweep: an expired sequence stops decoding
+                    # now; its slot and pages free for live requests.
+                    for seq in [s for s in self._active.values()
+                                if self._deadline_expired(s)]:
+                        self._retire(seq, done=False)
+                        if not seq.cancelled:
+                            seq.queue.put_nowait(DeadlineExceeded(
+                                "deadline expired while decoding"))
+                    self._admit()
                 if not self._active:
                     if self._waiting:
                         continue   # admission makes progress every pass
@@ -316,9 +337,10 @@ class InferenceEngine:
                             if not s.prefilled]:
                     tok = await loop.run_in_executor(self._exec,
                                                      self._prefill, seq)
-                    seq.prefilled = True
-                    if self._push(seq, tok) or seq.cancelled:
-                        self._retire(seq, done=not seq.cancelled)
+                    with local_span("engine.deliver"):
+                        seq.prefilled = True
+                        if self._push(seq, tok) or seq.cancelled:
+                            self._retire(seq, done=not seq.cancelled)
 
                 if not self._active:
                     continue
@@ -333,20 +355,23 @@ class InferenceEngine:
                 # One batched decode step over every live slot.  Inactive
                 # slots run token 0 at pos 0 against an all-zero table
                 # row: their writes land in scratch page 0.
-                token = np.zeros((cfg.max_batch,), np.int64)
-                pos = np.zeros((cfg.max_batch,), np.int64)
-                tables = np.zeros((cfg.max_batch, self._maxp), np.int64)
-                for slot, seq in self._active.items():
-                    token[slot] = seq.last_token
-                    pos[slot] = seq.pos
-                    tables[slot] = seq.row
+                with local_span("engine.schedule"):
+                    token = np.zeros((cfg.max_batch,), np.int64)
+                    pos = np.zeros((cfg.max_batch,), np.int64)
+                    tables = np.zeros((cfg.max_batch, self._maxp), np.int64)
+                    for slot, seq in self._active.items():
+                        token[slot] = seq.last_token
+                        pos[slot] = seq.pos
+                        tables[slot] = seq.row
                 nxt = await loop.run_in_executor(self._exec, self._decode,
-                                                 token, pos, tables)
+                                                 token, pos, tables,
+                                                 len(self._active))
                 self._steps += 1
-                for slot, seq in list(self._active.items()):
-                    seq.pos += 1
-                    if self._push(seq, int(nxt[slot])) or seq.cancelled:
-                        self._retire(seq, done=not seq.cancelled)
+                with local_span("engine.deliver"):
+                    for slot, seq in list(self._active.items()):
+                        seq.pos += 1
+                        if self._push(seq, int(nxt[slot])) or seq.cancelled:
+                            self._retire(seq, done=not seq.cancelled)
             except asyncio.CancelledError:
                 raise
             except Exception as e:   # noqa: BLE001 - the loop must survive

@@ -56,3 +56,21 @@ def test_a_new_header_changes_the_path(csrc):
     before = _build.library_path("splash_attention.cu")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path("splash_attention.cu") != before
+
+
+def test_build_count_counts_nvcc_builds_only(csrc, tmp_path, monkeypatch):
+    """A fake nvcc that writes its ``-o`` file: the first ``build_all``
+    builds once, the second finds the library and builds nothing."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then : > "$2"; fi; shift\n'
+                    'done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parent.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    before = _build.build_count()
+    assert _build.build_all(["flash_fwd.cu"])["flash_fwd.cu"]["nvcc_s"] > 0
+    assert _build.build_count() == before + 1
+    assert _build.build_all(["flash_fwd.cu"])["flash_fwd.cu"]["nvcc_s"] == 0
+    assert _build.build_count() == before + 1
